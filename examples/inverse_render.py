@@ -3,9 +3,10 @@ gradient descent through the renderer.
 
 This is the end-to-end differentiability showcase (BASELINE.json north
 star): pixel gradients flow to sphere centers/radii and material albedo
-through the full path-tracing pipeline. Run on CPU or TPU:
+through the full path-tracing pipeline. Run from the repository root on
+the default accelerator, or on the CPU with --cpu:
 
-    PYTHONPATH=/root/repo python examples/inverse_render.py [--cpu]
+    PYTHONPATH=. python examples/inverse_render.py [--cpu]
 """
 import sys
 import time
@@ -33,12 +34,16 @@ def main():
     # ground truth scene: sphere at its true position with true albedo
     true_scene = cornell_box(cols=W, rows=H)
 
-    def render(scene, n_passes=2):
+    def render(scene, n_passes=2, passes=pathtracer.render_passes):
         st = pathtracer.init_state(cfg)
-        st = pathtracer.render_passes(scene, st, cfg, n_passes)
+        st = passes(scene, st, cfg, n_passes)
         return pathtracer.image(st, cfg)
 
-    target = render(true_scene, 4)
+    # Differentiated, render_passes is the XLA pipeline on every platform.
+    # The target comes from that pipeline too, with the same seed: the loss
+    # then shares its draws (common random numbers) and can fall below the
+    # Monte Carlo noise of two passes.
+    target = render(true_scene, 4, pathtracer.render_passes_xla)
 
     # start from perturbed parameters
     params = {

@@ -5,16 +5,10 @@ barely overlaps the target silhouette — the regime where the hard
 renderer's gradients (exact only in the interior) go silent and only
 edge-aware/visibility gradients (BASELINE.json north star) carry signal.
 
-Two engines:
+The engine is the soft path tracer (diff/soft.py render_pathtrace_soft):
+soft forward AND backward, annealing the bandwidth toward the hard image.
 
-  * ``soft`` — the toy O(N) soft path tracer (diff/soft.py
-    render_pathtrace_soft): soft forward AND backward; anneals bandwidth.
-  * ``mega`` — the PRODUCTION path: hard fused megakernel forward +
-    edge-aware soft backward through the custom VJP
-    (cfg.mega_edge_bandwidth; ops/pallas/megakernel_grad.py
-    _tile_program_soft). The image you optimize is the real render.
-
-Run:  python examples/silhouette_optim.py [soft|mega]   (CPU, ~1-3 min)
+Run:  python examples/silhouette_optim.py   (CPU, ~1-3 min)
 """
 import sys
 import os
@@ -33,66 +27,32 @@ import numpy as np
 import optax
 
 
-def optimize(engine="soft", width=48, height=36, steps=None,
-             offset=(0.35, -0.25), lr=2e-2, bandwidth=None,
-             verbose=False):
+def optimize(width=48, height=36, steps=None, offset=(0.35, -0.25),
+             lr=2e-2, verbose=False):
     """Run the silhouette recovery; returns (start_error, final_error)."""
     from raytracing_tpu import RenderConfig
+    from raytracing_tpu.diff.soft import render_pathtrace_soft
     from raytracing_tpu.models.scenes import cornell_box
-    from raytracing_tpu.render import pathtracer
 
     cfg = RenderConfig(width=width, height=height, spp=1, bounces=1)
     scene = cornell_box(cols=cfg.width, rows=cfg.height)
     true_center = np.asarray(scene.spheres.center).copy()
 
-    if engine == "mega":
-        from raytracing_tpu.render.mega import (render_pass_mega,
-                                                u_planes_for_pass)
-        bw = bandwidth or 3e-2
-        cfg_m = dataclasses.replace(cfg, use_megakernel=True,
-                                    mega_edge_bandwidth=bw)
-        st = pathtracer.init_state(cfg_m)
-        u = u_planes_for_pass(st["key"], st["passes"], cfg_m,
-                              scene.lights.count)
-        interpret = jax.default_backend() == "cpu"
+    def render(center, bw):
+        sc = dataclasses.replace(
+            scene,
+            spheres=dataclasses.replace(scene.spheres, center=center))
+        return render_pathtrace_soft(sc, cfg, bandwidth=bw, tau=bw)
 
-        def acc_of(center):
-            sc = dataclasses.replace(
-                scene,
-                spheres=dataclasses.replace(scene.spheres, center=center))
-            out = render_pass_mega(sc, st, cfg_m, u_planes=u,
-                                   interpret=interpret)
-            return out["acc"]
+    target = render(jnp.asarray(true_center), 2e-3)
 
-        target = jax.lax.stop_gradient(acc_of(jnp.asarray(true_center)))
+    def loss_fn(center, bw):
+        return jnp.mean((render(center, bw) - target) ** 2)
 
-        def loss_fn(center, _bw):
-            return jnp.mean((acc_of(center) - target) ** 2)
-
-        # the forward is the hard render; gradients ride the edge-aware
-        # backward — eager on CPU (whole-tile vjp jit compile is minutes),
-        # jitted Pallas backward on TPU
-        grad_fn = jax.grad(loss_fn) if interpret \
-            else jax.jit(jax.grad(loss_fn), static_argnums=1)
-        schedule = [bw] * (steps if steps is not None else 40)
-    else:
-        from raytracing_tpu.diff.soft import render_pathtrace_soft
-
-        def render(center, bw):
-            sc = dataclasses.replace(
-                scene,
-                spheres=dataclasses.replace(scene.spheres, center=center))
-            return render_pathtrace_soft(sc, cfg, bandwidth=bw, tau=bw)
-
-        target = render(jnp.asarray(true_center), 2e-3)
-
-        def loss_fn(center, bw):
-            return jnp.mean((render(center, bw) - target) ** 2)
-
-        grad_fn = jax.jit(jax.grad(loss_fn), static_argnums=1)
-        schedule = [3e-2] * 30 + [1e-2] * 30 + [3e-3] * 20
-        if steps is not None:
-            schedule = schedule[:steps]
+    grad_fn = jax.jit(jax.grad(loss_fn), static_argnums=1)
+    schedule = [3e-2] * 30 + [1e-2] * 30 + [3e-3] * 20
+    if steps is not None:
+        schedule = schedule[:steps]
 
     start = true_center.copy()
     start[0, 0] += offset[0]
@@ -116,16 +76,10 @@ def optimize(engine="soft", width=48, height=36, steps=None,
 
 
 def main():
-    engine = sys.argv[1] if len(sys.argv) > 1 else "soft"
-    steps = 12 if engine == "mega" else None
-    width, height = (24, 18) if engine == "mega" else (48, 36)
-    start_err, final_err = optimize(engine=engine, width=width,
-                                    height=height, steps=steps,
-                                    verbose=True)
-    print(f"[{engine}] final center error: {final_err:.4f} "
+    start_err, final_err = optimize(width=48, height=36, verbose=True)
+    print(f"final center error: {final_err:.4f} "
           f"(started at {start_err:.4f})")
-    thresh = 0.06 if engine == "soft" else 0.6 * start_err
-    assert final_err < thresh, "silhouette optimization did not converge"
+    assert final_err < 0.06, "silhouette optimization did not converge"
     print("OK: edge-aware gradients recovered the sphere position")
 
 

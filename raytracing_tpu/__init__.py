@@ -1,10 +1,11 @@
-"""raytracing_tpu — a TPU-native differentiable ray/path tracer.
+"""raytracing_tpu — a differentiable ray/path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 reference WebCL ray tracer (eaymerich/2015-RayTracing): multi-sphere and
 triangle-mesh ray tracing, 3D uniform-grid acceleration, disk area lights
 with shadow rays, thin-lens depth of field, and progressive Monte Carlo
-path tracing — all differentiable end-to-end and shardable over TPU meshes.
+path tracing — all differentiable end-to-end and shardable over device
+meshes.
 
 Layer map (SURVEY §7): core/ io/ ops/ accel/ render/ diff/ parallel/ models/.
 """

@@ -8,27 +8,21 @@ __all__ = ["Grid", "build_sphere_grid", "build_triangle_grid",
            "prepare_grids"]
 
 
-def auto_slabs(n_tris: int) -> int:
-    """Grid resolution from the measured megakernel cost model: the
-    in-kernel per-cell fixed cost (~265 cycles/cell-visit/tile, v5e)
-    balances against per-item work around ~40 items/cell, so
-    n ~ cbrt(T/40). Measured optima: teapot 1,012 tris -> 3 (predicted
-    2.9), cornell 32 -> 1-2 (predicted 0.9)."""
-    return max(1, round((max(n_tris, 1) / 40.0) ** (1.0 / 3.0)))
+def auto_slabs(n_items: int) -> int:
+    """Cubic grid resolution for ``n_items`` objects: n ~ cbrt(N / 40),
+    about 40 items per cell, so per-cell fixed cost and per-item work stay
+    balanced (cornell's 32 triangles -> 1, a 1,012-triangle teapot -> 3)."""
+    return max(1, round((max(n_items, 1) / 40.0) ** (1.0 / 3.0)))
 
 
 def prepare_grids(scene: Scene, n_slabs: int | tuple | str = 1,
                   mesh_slabs: int | str = "xml") -> Scene:
     """Build all acceleration grids host-side (the analog of preRender's
-    splitSphereData/splitTriangleData calls, ref code.js:1784-1804;
-    per-mesh grids use each mesh's own nslabs, code.js:899-1045).
-    ``n_slabs="auto"`` picks the scene resolution from the measured
-    megakernel cost model (auto_slabs).
-
-    The folded megakernel grid bakes a front-to-back cell order for the
-    CURRENT camera eye (mega_order_grid) — re-run prepare_grids after
-    material camera motion or the early-exit culling degrades (results
-    stay correct; see mega_order_grid's docstring)."""
+    splitSphereData/splitTriangleData calls, ref code.js:1784-1804).
+    ``n_slabs="auto"`` picks the scene resolution with auto_slabs. Each
+    mesh gets its own grid (code.js:899-1045): ``mesh_slabs="xml"``
+    honors the mesh's XML nslabs, ``"auto"`` uses auto_slabs, and an int
+    overrides every mesh."""
     if n_slabs == "auto":
         total = scene.triangles.count \
             + sum(m.tris.count for m in scene.meshes)
@@ -43,74 +37,17 @@ def prepare_grids(scene: Scene, n_slabs: int | tuple | str = 1,
         triangle_grid = build_triangle_grid(scene.triangles,
                                             scene.triangle_bounds_min,
                                             scene.triangle_bounds_max, n_slabs)
+
+    def mesh_res(m):
+        if mesh_slabs == "xml":
+            return m.nslabs
+        if mesh_slabs == "auto":
+            return auto_slabs(m.tris.count)
+        return mesh_slabs
+
     meshes = tuple(
         replace(m, grid=build_triangle_grid(m.tris, m.bounds_min,
-                                            m.bounds_max, m.nslabs))
+                                            m.bounds_max, mesh_res(m)))
         for m in scene.meshes)
-    # The megakernel's grid-mode table (folded_tri_grid), mirroring the
-    # reference's dispatch split (code.js:1293-1303): when meshes exist,
-    # the grid covers ONLY the mesh triangles over their merged (tight)
-    # bounds — scene triangles (walls) run the kernel's brute loop, since
-    # face-spanning triangles bin into O(n^2) cells each and make a scene-
-    # bounds grid strictly slower (the reference's own default scene grid
-    # is 1^3, code.js:399). Meshless scenes grid the scene triangles.
-    # Item indices are absolute into the _all_triangles fold (scene tris
-    # first, then meshes); results are identical to the per-source grids
-    # (grid == brute, hits idempotent).
-    import numpy as np
-
-    from .grid import mega_order_grid, sphere_aabbs, triangle_aabbs
-    folded_grids = None
-    eye = np.asarray(scene.camera.eye)
-    # grid the LARGE meshes only (the _all_triangles fold puts them last),
-    # ONE GRID PER MESH with the mesh's OWN nslabs (the reference's
-    # per-mesh meshTrace dispatch, code.js:1293-1303 — teapot 10^3, boxes
-    # 5^3 from the XML); small meshes join the walls in the kernel's brute
-    # prefix (64 = megakernel UNROLL_OBJECTS)
-    large = [m for m in scene.meshes if m.tris.count > 64]
-    if large:
-        start = scene.triangles.count + sum(
-            m.tris.count for m in scene.meshes if m.tris.count <= 64)
-        grids = []
-        off = start
-        for m in large:
-            # mesh_slabs="xml": honor each mesh's own XML nslabs (teapot
-            # 10^3, boxes 5^3 — the reference's exact per-mesh dispatch);
-            # "auto": per-mesh resolution from the measured cost model
-            # (the performance default); an int overrides every mesh
-            if mesh_slabs == "xml":
-                res = m.nslabs if (m.nslabs and m.nslabs != 1) else n_slabs
-            elif mesh_slabs == "auto":
-                res = auto_slabs(m.tris.count)
-            else:
-                res = mesh_slabs
-            g = build_triangle_grid(m.tris, m.bounds_min, m.bounds_max, res)
-            lo, hi = triangle_aabbs(np.asarray(m.tris.v))
-            grids.append(mega_order_grid(g, lo, hi, eye, index_offset=off))
-            off += m.tris.count
-        folded_grids = tuple(grids)
-    elif scene.triangles.count + sum(m.tris.count for m in scene.meshes):
-        # no large mesh: one grid over the whole fold (scene tris + small
-        # meshes)
-        from ..render.stages import _all_triangles
-        folded = _all_triangles(scene)
-        lo, hi = triangle_aabbs(np.asarray(folded.v))
-        g = build_triangle_grid(folded, lo.min(0), hi.max(0), n_slabs)
-        folded_grids = (mega_order_grid(g, lo, hi, eye),)
-    # mega sphere grid (molecule-scale scenes; the reference's
-    # splitSphereData analog): resolution from the measured cost model.
-    # Built only when render/mega.grid_tables will actually attach it —
-    # sphere tables past the SMEM budget (count * 8 packed floats); smaller
-    # scenes read spheres from SMEM and the build would be dead cost.
-    from ..ops.pallas import megakernel as _MK
-    mega_sph = None
-    if scene.spheres.count * 8 > _MK.SMEM_TABLE_MAX:
-        n_sph_grid = auto_slabs(scene.spheres.count)
-        gs = build_sphere_grid(scene.spheres, scene.sphere_bounds_min,
-                               scene.sphere_bounds_max, n_sph_grid)
-        lo, hi = sphere_aabbs(np.asarray(scene.spheres.center),
-                              np.asarray(scene.spheres.radius))
-        mega_sph = mega_order_grid(gs, lo, hi, eye)
     return replace(scene, sphere_grid=sphere_grid,
-                   triangle_grid=triangle_grid, meshes=meshes,
-                   folded_tri_grid=folded_grids, mega_sph_grid=mega_sph)
+                   triangle_grid=triangle_grid, meshes=meshes)

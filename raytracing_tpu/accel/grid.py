@@ -11,22 +11,18 @@ splitTriangleData code.js:1643-1772, splitMeshData code.js:899-1045):
     SURVEY §7 quirk 9).
 
 On top of the CSR arrays we derive a **padded dense** (n_cells, K) index
-table for the TPU traversal: dynamic-length per-cell loops are replaced by
-fixed-K masked intersections (SURVEY §7: "fixed-trip-count DDA or padded
-per-cell lists").
+table for the vectorized traversal: dynamic-length per-cell loops are
+replaced by fixed-K masked intersections (SURVEY §7: "fixed-trip-count DDA
+or padded per-cell lists").
 
 Build runs on host (numpy); a C++ fast path lives in native/ for large
 scenes (same layout, bit-identical offsets).
 """
 from __future__ import annotations
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-from typing import Any
 
 from ..core.types import _pytree_dataclass, static_field
 
@@ -45,21 +41,6 @@ class Grid:
     pmax: Array           # (3,)
     n: tuple = static_field(default=(1, 1, 1))   # (nx, ny, nz) per axis
     max_per_cell: int = static_field(default=0)
-    start: int = static_field(default=0)  # first index of the folded
-    #                                       triangle array this grid covers
-    #                                       (megakernel grid mode: indices
-    #                                       below run the brute loop — the
-    #                                       reference's scene-tris-vs-mesh
-    #                                       dispatch split, code.js:1293-1303)
-    cell_bounds: Any = None  # (ncells, 6) TIGHT per-cell AABB [lo, hi] of
-    #                          the binned items clipped to the cell, in
-    #                          VISIT order (mega_order_grid); None on plain
-    #                          builds
-    cell_centers: Any = None  # (ncells, 3) geometric cell centers in VISIT
-    #                           order — lets render-time code recompute a
-    #                           front-to-back permutation for the CURRENT
-    #                           eye (render/mega._fresh_grid; orbit/camera
-    #                           training stay optimally ordered)
 
 
 def _n3(n) -> tuple[int, int, int]:
@@ -133,69 +114,6 @@ def build_grid(lo: np.ndarray, hi: np.ndarray, pmin, pmax, n,
                 items=jnp.asarray(items),
                 pmin=jnp.asarray(pmin), pmax=jnp.asarray(pmax),
                 n=n, max_per_cell=K)
-
-
-def mega_order_grid(grid: Grid, lo: np.ndarray, hi: np.ndarray,
-                    eye, index_offset: int = 0) -> Grid:
-    """Prepare a grid for the megakernel's in-kernel traversal:
-
-      * cells re-ordered front-to-back by distance from the camera eye to
-        the cell center, so champions form in the first visited cells and
-        the shrinking ``min(maxt, champion)`` window culls the rest — the
-        tile-granular analog of the reference DDA's early exit
-        (code.cl:745-786);
-      * per-cell TIGHT AABBs (union of the binned items' boxes clipped to
-        the cell) for the kernel's slab test — boundary cells shrink to
-        their occupied corner.
-
-    ``lo/hi``: (O, 3) item AABBs in the grid's LOCAL index space;
-    ``index_offset`` is added to the stored item indices (folded-array
-    offset). Only the megakernel consumes the result — the XLA DDA
-    (accel/traverse.py) addresses cells by computed id and must use the
-    plain build.
-
-    The build-time order targets the build-time ``eye``; the stored
-    ``cell_centers`` let the megakernel driver recompute the permutation
-    for the CURRENT eye per render (render/mega._fresh_grid, a traced
-    argsort + CSR regather), so camera motion (orbit, camera training)
-    keeps optimal early-exit culling."""
-    nx, ny, nz = grid.n
-    ncells = nx * ny * nz
-    pmin = np.asarray(grid.pmin)
-    pmax = np.asarray(grid.pmax)
-    width = (pmax - pmin) / np.asarray([nx, ny, nz])
-    width = np.where(width <= 0, 1e-30, width)
-    offsets = np.asarray(grid.cell_offsets)
-    payload = np.asarray(grid.item_indices)
-
-    iz, rem = np.divmod(np.arange(ncells), ny * nx)
-    iy, ix = np.divmod(rem, nx)
-    cell_lo = pmin[None, :] + np.stack([ix, iy, iz], -1) * width[None, :]
-    centers = cell_lo + 0.5 * width[None, :]
-    order = np.argsort(np.linalg.norm(centers - np.asarray(eye)[None, :],
-                                      axis=-1), kind="stable")
-
-    counts = np.diff(offsets)[order]
-    new_off = np.zeros(ncells + 1, np.int32)
-    np.cumsum(counts, out=new_off[1:])
-    new_pay = np.concatenate(
-        [payload[offsets[c]:offsets[c + 1]] for c in order]) \
-        if payload.size else payload
-    bounds = np.zeros((ncells, 6), np.float32)
-    for k, c in enumerate(order):
-        ids = payload[offsets[c]:offsets[c + 1]]
-        if ids.size:
-            blo = np.maximum(lo[ids].min(0), cell_lo[c])
-            bhi = np.minimum(hi[ids].max(0), cell_lo[c] + width)
-            bounds[k, :3] = blo
-            bounds[k, 3:] = bhi
-    return dataclasses.replace(
-        grid,
-        cell_offsets=jnp.asarray(new_off),
-        item_indices=jnp.asarray(new_pay.astype(np.int32) + index_offset),
-        cell_bounds=jnp.asarray(bounds),
-        cell_centers=jnp.asarray(centers[order].astype(np.float32)),
-        start=index_offset)
 
 
 def sphere_aabbs(centers: np.ndarray, radii: np.ndarray):

@@ -24,7 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from ..core.types import Rays, Spheres, Triangles
-from ..ops.closest_hit import Champion, onehot_fetch
+from ..ops.closest_hit import Champion, fetch_rows
 from ..ops.intersect import aabb_window
 from .grid import Grid
 
@@ -96,21 +96,6 @@ def _march(rays: Rays, grid: Grid, cell_test, R: int):
     return best_t, best_i
 
 
-# the lockstep march fetches each ray's current cell row per DDA step.
-# Small grids use a one-hot matmul over all C cells (MXU, no gather);
-# past this cell count the O(C) per-step one-hot dominates everything
-# (VERDICT round-2: the XLA grid pipeline ran cornell_teapot ~350x slower
-# than the megakernel) and a clamped row GATHER wins: HBM cost R*(K*F)
-# per step instead of MXU cost R*C*(K*F). Out-of-range/inactive rays
-# fetch a clamped row whose results the callers' ``active`` masks drop.
-GATHER_MIN_CELLS = 64
-
-
-def _row_fetch(tab: Array, idx: Array) -> Array:
-    """(C, k) table + per-ray cell ids (R,) -> (R, k) row gather."""
-    return jnp.take(tab, jnp.clip(idx, 0, tab.shape[0] - 1), axis=0)
-
-
 # grids up to this many cells use the DENSE cell scan: a lax.scan over
 # cells where each step dynamic-slices ONE row of the packed cell table
 # (no (R, C) one-hot, no per-ray gather) and champions its items within
@@ -118,21 +103,20 @@ def _row_fetch(tab: Array, idx: Array) -> Array:
 # binned items is the full object set and duplicated hits are idempotent
 # (SURVEY §7 quirk 9), so no per-cell t-window is needed (a fp-exact
 # window would drop hits landing exactly on cell-boundary planes). O(C*K
-# duplicated items) per ray — the right trade below ~512 cells, where the
-# march's per-step lockstep overhead dominates; larger scenes take the
-# streaming megakernel (ops/pallas/megakernel.py STREAM_CHUNK).
+# duplicated items) per ray; below ~512 cells it avoids the march's
+# per-step lockstep overhead.
 DENSE_MAX_CELLS = 512
 
 
 def _dense_cell_scan(rays: Rays, grid: Grid, cell_items_test, R: int):
-    """Champion over cells via lax.scan. ``cell_items_test(c, lo, hi) ->
-    (t (R,K), ids (R,K))`` evaluates cell c's padded items inside the
-    per-ray t-window [lo, hi]."""
+    """Champion over cells via lax.scan. ``cell_items_test(c) ->
+    (t (R,K), ids (R,K))`` evaluates cell c's padded items inside each
+    ray's own t-window."""
     C = grid.items.shape[0]
 
     def body(carry, c):
         best_t, best_i = carry
-        t, ids = cell_items_test(c, rays.mint, rays.maxt)
+        t, ids = cell_items_test(c)
         tb, kb = _best_of_cell(t, ids)
         better = tb < best_t
         return (jnp.where(better, tb, best_t),
@@ -166,26 +150,23 @@ def grid_closest_spheres(rays: Rays, spheres: Spheres, grid: Grid,
     use_dense = method == "dense" or (method == "auto"
                                       and C <= DENSE_MAX_CELLS)
 
-    # Per-cell parameter table, built ONCE per trace (tiny (C, K) gather over
-    # the object arrays; XLA hoists it out of the march loop). Per DDA step
-    # the cell row is then fetched with ONE one-hot matmul — per-ray dynamic
-    # gathers inside the loop cost ~7 ms each at 1M rays on TPU and made the
-    # grid path ~300x slower than brute force.
+    # Per-cell parameter table, built ONCE per trace (a tiny (C, K) gather
+    # over the object arrays; XLA hoists it out of the march loop). Per DDA
+    # step each ray gathers its cell's row. Item ids stay int32 in
+    # grid.items, so they are exact at any object count.
     safe = jnp.maximum(grid.items, 0)
     valid_item = (grid.items >= 0) & spheres.mask[safe]          # (C, K)
     cell_tab = jnp.concatenate([
         spheres.center[safe],                                    # (C, K, 3)
         spheres.radius[safe][..., None],
         valid_item[..., None].astype(jnp.float32),
-        safe[..., None].astype(jnp.float32),                     # item id
-    ], axis=-1).reshape(C, K * 6)
+    ], axis=-1).reshape(C, K * 5)
 
-    def _sphere_window_test(f, lo, hi, active):
-        """(R, K, 6) params + per-ray window -> (t, ids)."""
+    def _sphere_window_test(f, ids, lo, hi, active):
+        """(R, K, 5) params + (R, K) item ids + per-ray window -> (t, ids)."""
         c = f[..., 0:3]
         r = f[..., 3]
         mask = (f[..., 4] > 0.0) & active[:, None]
-        ids = f[..., 5].astype(jnp.int32)
         omc = rays.o[:, None, :] - c
         a = jnp.sum(rays.d * rays.d, -1)[:, None]
         b = 2.0 * jnp.sum(omc * rays.d[:, None, :], -1)
@@ -204,20 +185,19 @@ def grid_closest_spheres(rays: Rays, spheres: Spheres, grid: Grid,
         return t, ids
 
     def cell_test(cell_id, active):
-        if C > GATHER_MIN_CELLS:
-            f = _row_fetch(cell_tab, cell_id).reshape(R, K, 6)
-        else:
-            # out-of-range cell_id matches no one-hot row -> zero params ->
-            # mask 0 -> INF (no gather-OOB hazard)
-            f = onehot_fetch(cell_tab, cell_id,
-                             obj_chunk=max(C, 1)).reshape(R, K, 6)
+        # out-of-range cell ids gather zero rows -> mask 0 -> INF
+        f = fetch_rows(cell_tab, cell_id).reshape(R, K, 5)
+        ids = fetch_rows(grid.items, cell_id)
         return _best_of_cell(*_sphere_window_test(
-            f, rays.mint[:, None], rays.maxt[:, None], active))
+            f, ids, rays.mint[:, None], rays.maxt[:, None], active))
 
-    def cell_items_test(c, lo, hi):
+    def cell_items_test(c):
         row = jax.lax.dynamic_slice_in_dim(cell_tab, c, 1, axis=0)
-        f = jnp.broadcast_to(row.reshape(1, K, 6), (R, K, 6))
-        return _sphere_window_test(f, lo[:, None], hi[:, None], rays.alive)
+        f = jnp.broadcast_to(row.reshape(1, K, 5), (R, K, 5))
+        ids = jnp.broadcast_to(
+            jax.lax.dynamic_slice_in_dim(grid.items, c, 1, axis=0), (R, K))
+        return _sphere_window_test(f, ids, rays.mint[:, None],
+                                   rays.maxt[:, None], rays.alive)
 
     if use_dense:
         best_t, best_i = jax.lax.stop_gradient(
@@ -228,9 +208,9 @@ def grid_closest_spheres(rays: Rays, spheres: Spheres, grid: Grid,
     valid = jnp.isfinite(best_t) & rays.alive
 
     # differentiable recompute (same pattern as ops.closest_hit)
-    cr = onehot_fetch(jnp.concatenate([spheres.center,
-                                       spheres.radius[:, None]], -1),
-                      jnp.where(valid, best_i, -1))
+    cr = fetch_rows(jnp.concatenate([spheres.center,
+                                     spheres.radius[:, None]], -1),
+                    jnp.where(valid, best_i, -1))
     c, r = cr[:, :3], cr[:, 3]
     omc = rays.o - c
     a = jnp.sum(rays.d * rays.d, -1)
@@ -261,8 +241,8 @@ def grid_closest_triangles(rays: Rays, tris: Triangles, grid: Grid,
     use_dense = method == "dense" or (method == "auto"
                                       and C <= DENSE_MAX_CELLS)
     # per-cell Moller-Trumbore constants (same split as
-    # ops.intersect.tri_constants), built once; see the note in
-    # grid_closest_spheres on why no per-ray gathers appear in the loop
+    # ops.intersect.tri_constants), built once; item ids stay int32 in
+    # grid.items (see grid_closest_spheres)
     from ..ops.intersect import tri_constants
     tc = tri_constants(tris.v)
     safe = jnp.maximum(grid.items, 0)
@@ -271,12 +251,11 @@ def grid_closest_triangles(rays: Rays, tris: Triangles, grid: Grid,
         tc.n_geo[safe], tc.c1[safe], tc.c2[safe],
         tc.e1[safe], tc.e2[safe], tc.k[safe][..., None],
         valid_item[..., None].astype(jnp.float32),
-        safe[..., None].astype(jnp.float32),
-    ], axis=-1).reshape(C, K * 18)
+    ], axis=-1).reshape(C, K * 17)
 
     oxd = jnp.cross(rays.o, rays.d)                              # (R, 3)
 
-    def _tri_window_test(f, lo, hi, active):
+    def _tri_window_test(f, ids, lo, hi, active):
         n_geo = f[..., 0:3]
         c1 = f[..., 3:6]
         c2 = f[..., 6:9]
@@ -284,7 +263,6 @@ def grid_closest_triangles(rays: Rays, tris: Triangles, grid: Grid,
         e2 = f[..., 12:15]
         kk = f[..., 15]
         mask = (f[..., 16] > 0.0) & active[:, None]
-        ids = f[..., 17].astype(jnp.int32)
         dd = rays.d[:, None, :]
         oo = rays.o[:, None, :]
         xx = oxd[:, None, :]
@@ -300,18 +278,18 @@ def grid_closest_triangles(rays: Rays, tris: Triangles, grid: Grid,
         return t, ids
 
     def cell_test(cell_id, active):
-        if C > GATHER_MIN_CELLS:
-            f = _row_fetch(cell_tab, cell_id).reshape(R, K, 18)
-        else:
-            f = onehot_fetch(cell_tab, cell_id,
-                             obj_chunk=max(C, 1)).reshape(R, K, 18)
+        f = fetch_rows(cell_tab, cell_id).reshape(R, K, 17)
+        ids = fetch_rows(grid.items, cell_id)
         return _best_of_cell(*_tri_window_test(
-            f, rays.mint[:, None], rays.maxt[:, None], active))
+            f, ids, rays.mint[:, None], rays.maxt[:, None], active))
 
-    def cell_items_test(c, lo, hi):
+    def cell_items_test(c):
         row = jax.lax.dynamic_slice_in_dim(cell_tab, c, 1, axis=0)
-        f = jnp.broadcast_to(row.reshape(1, K, 18), (R, K, 18))
-        return _tri_window_test(f, lo[:, None], hi[:, None], rays.alive)
+        f = jnp.broadcast_to(row.reshape(1, K, 17), (R, K, 17))
+        ids = jnp.broadcast_to(
+            jax.lax.dynamic_slice_in_dim(grid.items, c, 1, axis=0), (R, K))
+        return _tri_window_test(f, ids, rays.mint[:, None],
+                                rays.maxt[:, None], rays.alive)
 
     if use_dense:
         best_t, best_i = jax.lax.stop_gradient(
@@ -322,8 +300,8 @@ def grid_closest_triangles(rays: Rays, tris: Triangles, grid: Grid,
     valid = jnp.isfinite(best_t) & rays.alive
 
     T = tris.count
-    v = onehot_fetch(tris.v.reshape(T, 9), jnp.where(valid, best_i, -1)
-                     ).reshape(R, 3, 3)
+    v = fetch_rows(tris.v.reshape(T, 9), jnp.where(valid, best_i, -1)
+                   ).reshape(R, 3, 3)
     p0 = v[:, 0]
     e1 = v[:, 1] - p0
     e2 = v[:, 2] - p0

@@ -23,7 +23,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="raytracing_tpu",
-        description="TPU-native differentiable path tracer")
+        description="differentiable path tracer")
     p.add_argument("--scene", default="cornell",
                    help="builtin scene name (cornell, spheres) or XML path")
     p.add_argument("--renderer", default="path",
@@ -49,17 +49,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "from the measured cost model, 'xml' honors each "
                         "mesh's nslabs (reference-parity fidelity), an int "
                         "overrides all meshes")
-    p.add_argument("--pallas", action="store_true",
-                   help="use fused Pallas closest-hit kernels")
-    p.add_argument("--no-megakernel", action="store_true",
-                   help="disable the whole-pass fused Pallas megakernel "
-                        "(on by default for the path renderer; configs it "
-                        "does not cover fall back automatically)")
-    p.add_argument("--block", type=int, default=0, metavar="B",
-                   help="megakernel blocked pixel layout: map ray tiles to "
-                        "BxB pixel blocks so tile-level culling (grid / "
-                        "streamed chunks) sees compact frustums (0 = "
-                        "row-major; try 64 for mesh scenes)")
     p.add_argument("--chunk-passes", type=int, default=8,
                    help="passes per jit call (progress granularity)")
     p.add_argument("-o", "--output", default="render.png")
@@ -94,6 +83,8 @@ def main(argv=None) -> int:
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from .utils.cache import enable_compilation_cache
+    enable_compilation_cache()
 
     if args.list_devices:
         # device discovery (analog of findWebCLDevices, ref code.js:466-505)
@@ -119,9 +110,7 @@ def main(argv=None) -> int:
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        bounces=args.bounces, exposure=args.exposure,
                        seed=args.seed, use_grid=args.grid > 0,
-                       n_slabs=max(args.grid, 1), use_pallas=args.pallas,
-                       use_megakernel=not args.no_megakernel,
-                       mega_block=args.block)
+                       n_slabs=max(args.grid, 1))
     if args.grid > 0:
         from .accel import prepare_grids
         ms = args.mesh_slabs
@@ -129,8 +118,10 @@ def main(argv=None) -> int:
             ms = int(ms)
         scene = prepare_grids(scene, args.grid, mesh_slabs=ms)
 
+    from .render import route
     print(f"device: {jax.devices()[0].platform} "
-          f"({jax.devices()[0].device_kind})")
+          f"({jax.devices()[0].device_kind}), "
+          f"route: {route.forward(scene, cfg)}")
     for k, v in scene_stats(scene).items():
         print(f"  {k}: {v}")
 
@@ -188,8 +179,8 @@ def main(argv=None) -> int:
     try:
         while done < target:
             n = min(args.chunk_passes, target - done)
-            state = pathtracer.render_passes(scene, state, cfg, n)
-            float(state["acc"].ravel()[0])  # fence
+            state = jax.block_until_ready(
+                pathtracer.render_passes(scene, state, cfg, n))
             done = int(state["passes"])
             # crash-safe: persist progressive state every chunk (failure
             # recovery = restart with --resume; SURVEY §5)

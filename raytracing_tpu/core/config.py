@@ -28,64 +28,8 @@ class RenderConfig:
     n_slabs: int | tuple = 1           # scene grid resolution (ref code.js:399);
                                        # int = cubic, (nx, ny, nz) = per axis
                                        # ((n, 1, 1) = Assign06 1-D slabs)
-    ray_chunk: int = 1 << 17           # rays per compute tile in chunked ops
-    obj_chunk: int = 256               # objects per chunk in brute-force scan
-                                       # (fastest on v5e at 1k-object scenes:
-                                       # 19.5 ms/Mray vs 20.0 @512, 23.5 @1024)
-    use_pallas: bool = False           # fused Pallas closest-hit kernels
-    use_megakernel: bool = False       # whole-pass fused Pallas kernel
-                                       # (fwd + custom-VJP bwd; see render/mega.py)
-    mega_grad_wrt: tuple = ("par", "sph", "tri", "mat", "lig")
-                                       # parameter groups the differentiable
-                                       # megakernel returns real cotangents
-                                       # for; restrict (e.g. ("sph","mat") =
-                                       # BASELINE's geometry+albedo) to skip
-                                       # unneeded transpose work
-    mega_bwd_sublanes: int = 0         # backward kernel tile height (must
-                                       # divide the forward's 32). 0 = auto:
-                                       # 8 for the champion (cell) backward
-                                       # — smaller tiles give tighter
-                                       # champion-chunk ranges (measured
-                                       # +3.5% teapot train) — 32 otherwise
-    mega_bwd_impl: str = "auto"        # which backward the megakernel VJP
-                                       # runs: "cell" (champion-recording
-                                       # cell-marching backward — the
-                                       # forward records champion rows +
-                                       # occlusion bits, the backward is
-                                       # gather + shading VJP + scatter,
-                                       # no object sweep), "pallas" (fused
-                                       # recompute kernel — fastest for
-                                       # unrolled cornell-class tables),
-                                       # "xla" (dense value-level sweep
-                                       # transpose — the oracle route).
-                                       # "auto": cell past the unroll
-                                       # budget / grid mode, else pallas.
-                                       # cell/xla replay draws from a
-                                       # threefry u-planes tensor, so the
-                                       # forward consumes the same planes.
-    mega_edge_bandwidth: float = 0.0   # > 0: the megakernel VJP's backward
-                                       # differentiates the EDGE-AWARE soft
-                                       # program (sigmoid silhouette
-                                       # coverage + softmin depth + soft
-                                       # shadow transmittance) instead of
-                                       # the hard champion program —
-                                       # visibility gradients at
-                                       # silhouettes become real. Forward
-                                       # stays the hard fused kernel.
-                                       # Scene-unit silhouette width;
-                                       # ~1e-2 x scene scale is a good
-                                       # start (see diff/ docs).
-    mega_edge_tau: float = 0.0         # softmin depth temperature for the
-                                       # edge-aware backward (defaults to
-                                       # mega_edge_bandwidth when 0)
-    mega_block: int = 0                # megakernel pixel-block side (e.g.
-                                       # 64): ray tiles map to square pixel
-                                       # blocks instead of row-major strips,
-                                       # so tile-level culling (grid cells /
-                                       # stream chunks) sees compact
-                                       # frustums. 0 = row-major. Requires
-                                       # width % block == height % block
-                                       # == 0; the host unpermutes images.
+    obj_chunk: int = 256               # objects per chunk in the brute-force
+                                       # champion scan
     seed: int = 1234
 
     @property

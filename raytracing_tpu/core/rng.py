@@ -3,7 +3,7 @@
 The reference keeps one persistent Park–Miller LCG seed per ray slot, indexed
 by ``get_global_id(0)`` (Assign10-Path_Tracing/code.cl:420-434) — a layout
 that changes meaning between 1-D and 2-D kernels (SURVEY §5 hazard note).
-The TPU-native design replaces this with JAX's counter-based threefry: every
+This design replaces it with JAX's counter-based threefry: every
 random draw is keyed on *logical* identity (render seed, pass index, purpose,
 depth), so results are reproducible under any sharding / batching layout.
 """

@@ -7,7 +7,7 @@ Reference semantics (Assign10-Path_Tracing/code.cl):
   * ``getHemisphereRay``     code.cl:545-579 (TBN + cosine-weighted dir)
 
 All functions are shape-polymorphic over leading batch dims and branch-free
-(jnp.where instead of the reference's if/else) so they vectorize on the VPU.
+(jnp.where instead of the reference's if/else) so they vectorize.
 """
 from __future__ import annotations
 

@@ -1,11 +1,11 @@
 """Core geometric / renderer state types.
 
 All types are SoA (structure-of-arrays) pytree dataclasses over jnp arrays — the
-TPU-native analog of the reference's flat ``__global`` SoA buffers
+analog of the reference's flat ``__global`` SoA buffers
 (ref: Assign10-Path_Tracing/code.cl:11-68 struct definitions, and the host-side
 buffer layouts at Assign10-Path_Tracing/code.js:1078-1234).
 
-Design notes (TPU-first, not a port):
+Design notes (not a port):
   * A *batch* of rays is a single pytree of dense arrays ``(N, 3)`` / ``(N,)``
     — the analog of the persistent ray buffer of the wavefront pipeline
     (ref: Assign03 onward). There is no per-ray object.
@@ -411,18 +411,6 @@ class Scene:
     lens_radius: Array       # () lens_diameter / 2
     sphere_grid: Any = None    # accel.grid.Grid, built by prepare_grids
     triangle_grid: Any = None
-    folded_tri_grid: Any = None  # tuple[Grid, ...]: the megakernel's
-    #                              grid-mode tables (render/mega.py) —
-    #                              one grid PER LARGE MESH, each with its
-    #                              own nslabs resolution and AABB (the
-    #                              reference's per-mesh meshTrace
-    #                              dispatch), item indices absolute into
-    #                              render.stages._all_triangles' fold
-    #                              order; or a single scene-level grid
-    #                              when no large mesh exists
-    mega_sph_grid: Any = None    # Grid over ALL spheres in mega visit
-    #                              order — the megakernel's in-kernel
-    #                              sphere grid for molecule-scale scenes
 
     @property
     def bounds(self) -> AABB:

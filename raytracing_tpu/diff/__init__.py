@@ -1,31 +1,22 @@
 """Differentiable rendering: FD oracle + edge-aware gradients.
 
-Three tiers of gradients, from production to toy:
+Two tiers of gradients:
 
-1. PRODUCTION, interior-exact: the megakernel custom VJP
-   (`ops.pallas.megakernel_grad.pathtrace_pass_diff`, routed by
-   `render.mega.render_pass_mega` whenever
-   `render.mega.supported_diff(scene, cfg)`). Cotangents follow the hard
-   champion `where` — exact wherever visibility is locally constant
-   (almost everywhere), silent exactly at silhouettes. Covers tables to
-   `render.mega.DIFF_TABLE_MAX` objects/type (chunk-scanned backward with
-   the streaming forward as primal) and shards over a device mesh
-   (`parallel.mesh.make_train_step`).
+1. PRODUCTION, interior-exact: XLA's AD of the hard stage pipeline
+   (`render.pathtracer._render_pass`, sharded by
+   `parallel.mesh.make_train_step`). The champion search runs under
+   stop_gradient and hit points are recomputed from gathered object
+   parameters, so cotangents follow the hard champion `where` — exact
+   wherever visibility is locally constant (almost everywhere), silent
+   exactly at silhouettes.
 
-2. PRODUCTION, edge-aware: set ``cfg.mega_edge_bandwidth > 0`` — the
-   SAME custom VJP differentiates the soft reformulation of the schedule
-   (`_tile_program_soft`: sigmoid silhouette coverage, soft
-   alpha-composited depth ordering, soft shadow transmittance) while the
-   forward image stays the hard fused kernel. Visibility gradients at
-   silhouettes/shadow boundaries become real; FD-allclose at 512x512 on
-   unmasked full-image losses (tests/test_edge_grad.py). Gated to
-   unrolled-size tables (<= 64 objects/type).
-
-3. TOY references (this package): `soft.render_fake_shade_soft`,
-   `soft.render_direct_soft`, `soft.render_pathtrace_soft` — standalone
-   soft renderers (soft forward AND backward) used as oracles and for
-   small-scale experiments; `fd.finite_difference` / `fd.check_grad` —
-   the FD harness every gradient claim is tested against.
+2. Edge-aware soft renderers (this package): `soft.render_fake_shade_soft`,
+   `soft.render_direct_soft`, `soft.render_pathtrace_soft` — soft forward
+   AND backward (sigmoid silhouette coverage, softmin depth, soft shadow
+   transmittance), so visibility gradients at silhouettes and shadow
+   boundaries are real. They converge to the hard pipeline as the
+   bandwidth goes to 0 (tested). `fd.finite_difference` / `fd.check_grad`
+   are the FD harness every gradient claim is tested against.
 
 Choosing a bandwidth: it is the silhouette smoothing width in SCENE
 units; ~1e-2 x scene scale gives a few pixels of support at 512-1024 px

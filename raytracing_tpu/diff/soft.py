@@ -70,7 +70,7 @@ def render_fake_shade_soft(cam: Camera, spheres: Spheres, colors: Array,
     p = o[None, :, :] + t[..., None] * d[None, :, :]       # (S,R,3)
     n = p - spheres.center[:, None, :]
     n = n / jnp.maximum(jnp.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
-    shade = jnp.einsum("j,srj->sr", cam.w, n)              # (S,R)
+    shade = jnp.sum(cam.w * n, -1)                         # (S,R)
     rgb = colors[:, None, :3] * shade[..., None]           # (S,R,3)
 
     img = jnp.sum(w[..., None] * rgb, axis=0)              # (R,3)
@@ -144,17 +144,17 @@ def _soft_triangle_hits(o, d, tris, bandwidth, two_sided):
 def _gather_soft(o, d, scene: Scene, bandwidth, two_sided):
     """All objects' soft hit hypotheses stacked along axis 0, plus their
     albedo rows."""
-    from ..ops.closest_hit import palette_lookup
+    from ..ops.closest_hit import fetch_rows
     from ..render.stages import _all_triangles
     parts = []
     if scene.spheres.count:
         a, t, p, n = _soft_sphere_hits(o, d, scene.spheres, bandwidth)
-        alb = palette_lookup(scene.materials[:, :3], scene.spheres.mat_id)
+        alb = fetch_rows(scene.materials[:, :3], scene.spheres.mat_id)
         parts.append((a, t, p, n, alb))
     tris = _all_triangles(scene)
     if tris.count:
         a, t, p, n = _soft_triangle_hits(o, d, tris, bandwidth, two_sided)
-        alb = palette_lookup(scene.materials[:, :3], tris.mat_id)
+        alb = fetch_rows(scene.materials[:, :3], tris.mat_id)
         parts.append((a, t, p, n, alb))
     alpha = jnp.concatenate([p[0] for p in parts])
     t = jnp.concatenate([p[1] for p in parts])
@@ -266,7 +266,8 @@ def render_pathtrace_soft(scene: Scene, cfg: RenderConfig,
     to (H, W, 3) — one sample/pixel, no tonemap (compare to state['acc']).
 
     O(N^2) per depth like render_direct_soft: the differentiation path
-    for small scenes; the megakernel VJP (interior-exact) is production."""
+    for small scenes; the hard pipeline's AD (interior-exact) is what
+    trains at scale."""
     from ..core import rng
     from ..core.sampling import concentric_disk, sample_disk_point
     from ..core.types import tangent_frame
@@ -306,17 +307,18 @@ def render_pathtrace_soft(scene: Scene, cfg: RenderConfig,
         # for cov ~ 1e-20 and NaNs against zero weights
         goodc = cov > 1e-6
         wn = jnp.where(goodc, w / jnp.where(goodc, cov, 1.0), 0.0)
-        pbar = jnp.einsum("nr,nrk->rk", wn, p)
+        pbar = jnp.sum(wn[..., None] * p, axis=0)
         # blended normal; can be DENORMALLY small (uncovered rays, or edge
         # pixels blending opposing normals) — rsqrt's backward overflows on
         # denormal inputs, so park those rays on a unit fallback normal
-        nraw = jnp.einsum("nr,nrk->rk", wn, n)
+        nraw = jnp.sum(wn[..., None] * n, axis=0)
         n2 = jnp.sum(nraw * nraw, -1)
         good = n2 > 1e-8
         nbar = jnp.where(good[:, None], nraw,
                          jnp.array([0.0, 0.0, 1.0])) \
             * jax.lax.rsqrt(jnp.where(good, n2, 1.0))[:, None]
-        albbar = jnp.einsum("nr,nk->rk", wn, alb)
+        albbar = jnp.einsum("nr,nk->rk", wn, alb,
+                            precision=jax.lax.Precision.HIGHEST)
         tbar = jnp.sum(wn * t, axis=0)
 
         if depth == 0:
@@ -325,8 +327,8 @@ def render_pathtrace_soft(scene: Scene, cfg: RenderConfig,
             for li in range(L):
                 lp = scene.lights.position[li]
                 ln = scene.lights.normal[li]
-                den = d @ ln
-                num = (lp - o) @ ln
+                den = jnp.sum(d * ln, -1)
+                num = jnp.sum((lp - o) * ln, -1)
                 # double-where side mask (same scheme as _soft_triangle_hits):
                 # near-zero den would make t_l astronomic and the division's
                 # backward (-num/den^2) overflow to inf, NaN-ing the
@@ -363,7 +365,7 @@ def render_pathtrace_soft(scene: Scene, cfg: RenderConfig,
                                       cfg.two_sided_triangles)
             r2 = jnp.sum((pbar - lp) ** 2, -1)
             cosx = jnp.clip(jnp.sum(sdir * nbar, -1), 0.0, 1.0)
-            cosy = jnp.clip(-(sdir @ ln), 0.0, 1.0)
+            cosy = jnp.clip(-jnp.sum(sdir * ln, -1), 0.0, 1.0)
             geom = scene.lights.area[li] * cosx * cosy \
                 / jnp.maximum(r2, 1e-20)
             gain = (path_w * cov * vis * geom)[:, None]

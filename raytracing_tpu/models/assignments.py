@@ -87,7 +87,7 @@ def assign03(cols=512, rows=512, molecule="c60.pdb"):
     persistent ray buffer (the Assign03 two-kernel structure)."""
     import jax
 
-    from ..ops.closest_hit import closest_hit_spheres, onehot_fetch, \
+    from ..ops.closest_hit import closest_hit_spheres, fetch_rows, \
         sphere_hit_attrs
     from ..render.camera import pinhole_rays, pixel_grid
 
@@ -102,8 +102,8 @@ def assign03(cols=512, rows=512, molecule="c60.pdb"):
     def trace_stage(rays):
         ch = closest_hit_spheres(rays, spheres)
         _, n, _ = sphere_hit_attrs(rays, spheres, ch)
-        shade = jnp.einsum("j,ij->i", cam.w, n)
-        rgb = onehot_fetch(colors[:, :3], ch.idx) * shade[:, None]
+        shade = jnp.sum(cam.w[None, :] * n, -1)
+        rgb = fetch_rows(colors[:, :3], ch.idx) * shade[:, None]
         img = jnp.where(ch.valid[:, None], rgb, 0.0)
         return img.reshape(cam.rows, cam.cols, 3)
 
@@ -117,13 +117,8 @@ def assign03(cols=512, rows=512, molecule="c60.pdb"):
 def _mesh_scene(cols, rows, use_grid: bool, n_slabs: int = 1,
                 slab_1d: bool = False):
     scene = cornell_box(cols=cols, rows=rows)
-    # production route is the fused megakernel (grid scenes run its
-    # in-kernel uniform-grid mode); the XLA stage/grid pipeline stays
-    # reachable with use_megakernel=False for parity tests
     cfg = RenderConfig(width=cols, height=rows, spp=1, bounces=0,
-                       use_grid=use_grid, n_slabs=n_slabs,
-                       use_megakernel=True,
-                       mega_block=64 if use_grid else 0)
+                       use_grid=use_grid, n_slabs=n_slabs)
     if use_grid:
         from ..accel import prepare_grids
         scene = prepare_grids(scene, n_slabs)
@@ -166,8 +161,7 @@ def assign07(cols=512, rows=512, n_slabs=4, scene_xml: str | None = None,
         scene = prepare_grids(load_scene(scene_xml, cols, rows), n_slabs,
                               mesh_slabs=mesh_slabs)
         cfg = RenderConfig(width=cols, height=rows, spp=1, bounces=0,
-                           use_grid=True, n_slabs=n_slabs,
-                           use_megakernel=True, mega_block=64)
+                           use_grid=True, n_slabs=n_slabs)
         return render_direct, (scene, cfg), cfg
     scene, cfg = _mesh_scene(cols, rows, use_grid=True, n_slabs=n_slabs)
     return render_direct, (scene, cfg), cfg
@@ -182,8 +176,7 @@ def assign08(cols=320, rows=240, scene_xml: str | None = None):
         scene = load_scene(scene_xml, cols, rows)
     else:
         scene = cornell_box(cols=cols, rows=rows)
-    cfg = RenderConfig(width=cols, height=rows, spp=1, bounces=0,
-                       use_megakernel=True)
+    cfg = RenderConfig(width=cols, height=rows, spp=1, bounces=0)
     return render_direct, (scene, cfg), cfg
 
 
@@ -192,8 +185,7 @@ def assign09(cols=320, rows=240, spp=4, focal_length=2.8,
     """Thin-lens depth of field with stratified lens sampling."""
     scene = cornell_box(cols=cols, rows=rows, focal_length=focal_length,
                         lens_diameter=lens_diameter)
-    cfg = RenderConfig(width=cols, height=rows, spp=spp, bounces=0,
-                       use_megakernel=True)
+    cfg = RenderConfig(width=cols, height=rows, spp=spp, bounces=0)
     return render_direct, (scene, cfg), cfg
 
 
@@ -205,8 +197,7 @@ def assign10(cols=320, rows=240, spp=1, bounces=5, passes=32,
         scene = load_scene(scene_xml, cols, rows)
     else:
         scene = cornell_box(cols=cols, rows=rows)
-    cfg = RenderConfig(width=cols, height=rows, spp=spp, bounces=bounces,
-                       use_megakernel=True)
+    cfg = RenderConfig(width=cols, height=rows, spp=spp, bounces=bounces)
 
     def run():
         state = init_state(cfg)

@@ -91,8 +91,7 @@ def big_mesh_scene(name: str = "house_of_parliament.json",
     """Large-triangle-count scene from a reference mesh JSON (the assets
     the reference's grid exists for — house_of_parliament.json is 5,322
     triangles, ref Assign04-07 tri/). Normalized to the unit cube, one
-    overhead disk light, camera auto-framed. Exercises the streaming
-    (Morton-chunk + tile-culling) megakernel path."""
+    overhead disk light, camera auto-framed."""
     import os
 
     from ..core.types import AABB, Camera, Lights

@@ -4,19 +4,14 @@ The reference walks objects with per-work-item champion loops
 (ref sphereTrace Assign10-Path_Tracing/code.cl:745-786; molTrace
 Assign02 code.cl:205-215). Here the champion search is a chunked
 ``lax.scan`` over the object axis with an all-pairs **(O, R)** tile per
-step — objects on sublanes, rays on lanes (see the layout note in
-ops/intersect.py), dense, branch-free, MXU-backed.
-
-TPU-specific choices:
-  * champion reduction = min/argmin over the (small) sublane axis;
-  * champion attribute fetch = chunked ONE-HOT MATMUL instead of dynamic
-    gather (TPU gathers are slow; a (k, C) @ (C, R) contraction on the MXU
-    is not);
-  * any-hit skips argmin/attrs entirely (dense OR-reduce).
+step: dense and branch-free, so XLA fuses each step's intersection math
+into its min/argmin reduction. Any-hit skips argmin and attributes
+entirely (dense OR-reduce). Champion attributes are fetched with row
+gathers (``fetch_rows``): exact, and their VJP is a scatter-add.
 
 Differentiability: the champion *search* runs under stop_gradient, then the
 hit distance / normals are recomputed differentiably for the (R,)-sized
-champions from one-hot-fetched object parameters. Gradients are exact
+champions from the gathered object parameters. Gradients are exact
 wherever the champion assignment is locally constant (a.e.).
 """
 from __future__ import annotations
@@ -75,44 +70,13 @@ def _anyhit_scan(hit_of_chunk, chunk_data, R: int):
     return occ
 
 
-def palette_lookup(table: Array, idx: Array) -> Array:
-    """(M, k) table, (R,) int idx -> (R, k). For small M (materials,
-    element colors) an unrolled masked sum beats both dynamic gather
-    (slow on TPU) and one-hot matmul (K-padding waste). idx < 0 or >= M
-    yields zeros."""
-    M = table.shape[0]
-    if M > 32:
-        return onehot_fetch(table, idx)
-    out = jnp.zeros((idx.shape[0], table.shape[1]), table.dtype)
-    for m in range(M):
-        out = out + jnp.where((idx == m)[:, None], table[m][None, :], 0.0)
-    return out
-
-
-def onehot_fetch(data: Array, idx: Array, obj_chunk: int = 2048) -> Array:
-    """Fetch rows of ``data`` (O, k) at per-ray indices ``idx`` (R,) via
-    chunked one-hot matmuls: out (R, k) = sum_c onehot(C,R)^T-contracted
-    chunks. idx < 0 yields zeros. MXU-friendly replacement for gather."""
-    O, k = data.shape
-    C = min(obj_chunk, O)
-    n_chunks = -(-O // C)
-    dchunks = _chunk(data.astype(jnp.float32), n_chunks, C)
-
-    def body(carry, inp):
-        acc, offset = carry
-        dc = inp
-        local = idx - offset
-        onehot = (jax.lax.broadcasted_iota(jnp.int32, (C, idx.shape[0]), 0)
-                  == local[None, :]).astype(jnp.float32)     # (C, R)
-        acc = acc + jax.lax.dot_general(
-            onehot, dc, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)              # (R, k)
-        return (acc, offset + C), None
-
-    (out, _), _ = jax.lax.scan(
-        body, (jnp.zeros((idx.shape[0], k), jnp.float32), jnp.int32(0)),
-        dchunks)
-    return out
+def fetch_rows(data: Array, idx: Array) -> Array:
+    """Rows of ``data`` (O, k) at per-ray indices ``idx`` (R,) -> (R, k).
+    ``idx`` < 0 or >= O yields zeros. A gather: exact in every dtype, and
+    its VJP is a scatter-add."""
+    ok = (idx >= 0) & (idx < data.shape[0])
+    rows = jnp.take(data, jnp.where(ok, idx, 0), axis=0, mode="clip")
+    return jnp.where(ok[:, None], rows, jnp.zeros((), data.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -121,13 +85,9 @@ def onehot_fetch(data: Array, idx: Array, obj_chunk: int = 2048) -> Array:
 
 def closest_hit_spheres(rays: Rays, spheres: Spheres, *,
                         obj_chunk: int = 2048,
-                        formulation: str = "matmul",
-                        use_pallas: bool = False) -> Champion:
+                        formulation: str = "matmul") -> Champion:
     """Closest valid sphere hit per ray (ref sphereTrace champion loop,
-    code.cl:761-772, without the grid — the grid path lives in accel/).
-
-    ``use_pallas`` switches the champion search to the fused VMEM kernel
-    (ops/pallas/hit_kernels.py) — O(R) instead of O(O*R) HBM traffic."""
+    code.cl:761-772, without the grid — the grid path lives in accel/)."""
     S = spheres.count
     R = rays.n
     if S == 0:
@@ -153,24 +113,17 @@ def closest_hit_spheres(rays: Rays, spheres: Spheres, *,
 
         return _champion_scan(chunk_ts, (cen, rad, msk), R)
 
-    if use_pallas:
-        from .pallas.hit_kernels import sphere_search_pallas
-        best_t, best_i = jax.lax.stop_gradient(sphere_search_pallas(
-            rays.o, rays.d, rays.mint, rays.maxt, spheres.center,
-            spheres.radius, spheres.mask,
-            interpret=jax.default_backend() == "cpu"))
-    else:
-        best_t, best_i = jax.lax.stop_gradient(
-            search(rays.o, rays.d, rays.mint, rays.maxt,
-                   spheres.center, spheres.radius, spheres.mask))
+    best_t, best_i = jax.lax.stop_gradient(
+        search(rays.o, rays.d, rays.mint, rays.maxt,
+               spheres.center, spheres.radius, spheres.mask))
     valid = jnp.isfinite(best_t) & rays.alive
 
     # differentiable recompute for champions — single-object quadratic,
     # (R,)-sized.  NaN-safety: non-champion lanes can produce dis<=0 / inf;
     # sanitize inputs before sqrt/where (double-where pattern).
-    cr = onehot_fetch(jnp.concatenate([spheres.center,
-                                       spheres.radius[:, None]], -1),
-                      jnp.where(valid, best_i, -1), obj_chunk)
+    cr = fetch_rows(jnp.concatenate([spheres.center,
+                                     spheres.radius[:, None]], -1),
+                    jnp.where(valid, best_i, -1))
     c, r = cr[:, :3], cr[:, 3]
     omc = rays.o - c
     a = jnp.sum(rays.d * rays.d, -1)
@@ -197,32 +150,21 @@ def sphere_hit_attrs(rays: Rays, spheres: Spheres, champ: Champion
     no inf/NaN enters the graph (their outputs are masked by mat_id = -1)."""
     t_safe = jnp.where(champ.valid, champ.t, 0.0)
     p = rays.at(t_safe)
-    fetched = onehot_fetch(
-        jnp.concatenate([spheres.center,
-                         spheres.mat_id[:, None].astype(jnp.float32)], -1),
-        champ.idx)
-    center = fetched[:, :3]
-    mat = jnp.where(champ.valid, fetched[:, 3].astype(jnp.int32), -1)
+    center = fetch_rows(spheres.center, champ.idx)
+    mat = jnp.where(champ.valid,
+                    fetch_rows(spheres.mat_id[:, None], champ.idx)[:, 0], -1)
     n = I.sphere_normal(jnp.where(champ.valid[:, None], p, p + 1.0), center)
     return p, n, mat
 
 
 def anyhit_spheres(rays: Rays, spheres: Spheres, *, obj_chunk: int = 2048,
-                   formulation: str = "matmul",
-                   use_pallas: bool = False) -> Array:
+                   formulation: str = "matmul") -> Array:
     """Occlusion: any valid hit in the ray window (ref sphereShadowTrace,
     code.cl:1073-1193 — dense OR-reduce, no champion bookkeeping)."""
     S = spheres.count
     R = rays.n
     if S == 0:
         return jnp.zeros((R,), bool)
-    if use_pallas:
-        from .pallas.hit_kernels import sphere_search_pallas
-        t, _ = sphere_search_pallas(rays.o, rays.d, rays.mint, rays.maxt,
-                                    spheres.center, spheres.radius,
-                                    spheres.mask,
-                                    interpret=jax.default_backend() == "cpu")
-        return jnp.isfinite(t) & rays.alive
     C = min(obj_chunk, S)
     n_chunks = -(-S // C)
     cen = _chunk(spheres.center, n_chunks, C)
@@ -245,8 +187,7 @@ def anyhit_spheres(rays: Rays, spheres: Spheres, *, obj_chunk: int = 2048,
 def closest_hit_triangles(rays: Rays, tris: Triangles, *,
                           obj_chunk: int = 2048,
                           formulation: str = "matmul",
-                          two_sided: bool = False,
-                          use_pallas: bool = False) -> Champion:
+                          two_sided: bool = False) -> Champion:
     """Closest valid Möller–Trumbore hit per ray
     (ref triangleTrace, code.cl:802-935, sans grid)."""
     T = tris.count
@@ -275,20 +216,13 @@ def closest_hit_triangles(rays: Rays, tris: Triangles, *,
                                               two_sided=two_sided).T
         return _champion_scan(chunk_ts, (vp, mp), R)
 
-    if use_pallas:
-        from .pallas.hit_kernels import triangle_search_pallas
-        best_t, best_i = jax.lax.stop_gradient(triangle_search_pallas(
-            rays.o, rays.d, rays.mint, rays.maxt, tris.v, tris.mask,
-            two_sided=two_sided,
-            interpret=jax.default_backend() == "cpu"))
-    else:
-        best_t, best_i = jax.lax.stop_gradient(
-            search(rays.o, rays.d, rays.mint, rays.maxt, tris.v, tris.mask))
+    best_t, best_i = jax.lax.stop_gradient(
+        search(rays.o, rays.d, rays.mint, rays.maxt, tris.v, tris.mask))
     valid = jnp.isfinite(best_t) & rays.alive
 
     # differentiable recompute for champions (NaN-safe)
-    v = onehot_fetch(tris.v.reshape(T, 9), jnp.where(valid, best_i, -1)
-                     ).reshape(R, 3, 3)
+    v = fetch_rows(tris.v.reshape(T, 9), jnp.where(valid, best_i, -1)
+                   ).reshape(R, 3, 3)
     p0 = v[:, 0]
     e1 = v[:, 1] - p0
     e2 = v[:, 2] - p0
@@ -310,16 +244,16 @@ def triangle_hit_attrs(rays: Rays, tris: Triangles, champ: Champion,
     R = rays.n
     t_safe = jnp.where(champ.valid, champ.t, 0.0)
     p = rays.at(t_safe)
-    packed = jnp.concatenate([tris.v.reshape(T, 9), tris.vn.reshape(T, 9),
-                              tris.mat_id[:, None].astype(jnp.float32)], -1)
-    fetched = onehot_fetch(packed, champ.idx)
+    fetched = fetch_rows(jnp.concatenate([tris.v.reshape(T, 9),
+                                          tris.vn.reshape(T, 9)], -1),
+                         champ.idx)
     v = fetched[:, :9].reshape(R, 3, 3)
-    vn = fetched[:, 9:18].reshape(R, 3, 3)
+    vn = fetched[:, 9:].reshape(R, 3, 3)
     beta, gamma = I.triangle_barycentrics(rays.o, rays.d, v)
     # sanitize: invalid lanes have v == 0 -> div == 0 handled inside
     n = I.interpolate_normal(beta, gamma, vn)
     if mat_id_override is None:
-        mat = fetched[:, 18].astype(jnp.int32)
+        mat = fetch_rows(tris.mat_id[:, None], champ.idx)[:, 0]
     else:
         mat = jnp.broadcast_to(jnp.asarray(mat_id_override, jnp.int32),
                                champ.idx.shape)
@@ -329,18 +263,11 @@ def triangle_hit_attrs(rays: Rays, tris: Triangles, champ: Champion,
 
 def anyhit_triangles(rays: Rays, tris: Triangles, *, obj_chunk: int = 2048,
                      formulation: str = "matmul",
-                     two_sided: bool = False,
-                     use_pallas: bool = False) -> Array:
+                     two_sided: bool = False) -> Array:
     T = tris.count
     R = rays.n
     if T == 0:
         return jnp.zeros((R,), bool)
-    if use_pallas:
-        from .pallas.hit_kernels import triangle_search_pallas
-        t, _ = triangle_search_pallas(rays.o, rays.d, rays.mint, rays.maxt,
-                                      tris.v, tris.mask, two_sided=two_sided,
-                                      interpret=jax.default_backend() == "cpu")
-        return jnp.isfinite(t) & rays.alive
     C = min(obj_chunk, T)
     n_chunks = -(-T // C)
     vp = _chunk(tris.v, n_chunks, C)

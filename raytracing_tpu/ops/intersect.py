@@ -7,23 +7,23 @@ Reference math (all from /root/reference/Assign10-Path_Tracing/code.cl):
   * interAABB         code.cl:335-389  (3-slab test)
   * interLight        code.cl:391-403  (ray ∩ light-disk plane + radius check)
 
-TPU-first reformulation
+All-pairs reformulation
 -----------------------
 The reference evaluates these per (work-item ray × object) with scalar loops.
-Here the ray-batch × object-batch inner products are expressed as dense
-matmuls over *precomputed per-object constants*, so the O(R·O) work runs on
-the MXU instead of scalar lanes:
+Here the ray-batch × object-batch inner products are expressed over
+*precomputed per-object constants*, so the O(R·O) work is a few dense
+multiply-adds per pair that XLA fuses into the champion reduction:
 
-  sphere:    b, c of the quadratic come from  d @ Cᵀ  and  o @ Cᵀ
+  sphere:    b, c of the quadratic come from  d·c  and  o·c
   triangle:  every Möller–Trumbore determinant is trilinear in (o, d) and the
              triangle, and splits as  det[s,d,e] = (o×d)·e − d·(e×p0)  with
-             s = o − p0  — i.e. two matmuls against per-triangle constant
-             vectors.  Four (R,3)@(3,T) matmuls give div, beta, gamma, t for
-             ALL pairs; no (R,T,3) intermediate is ever materialized.
+             s = o − p0  — i.e. inner products against per-triangle constant
+             vectors give div, beta, gamma, t for ALL pairs; no (R,T,3)
+             intermediate is ever materialized.
 
 A `pairwise` formulation (broadcasted, numerically identical to the
 reference's omc form) is kept for oracle testing and extreme-coordinate
-scenes; the matmul form is the production path.
+scenes; the constant-vector ("matmul") form is the production path.
 """
 from __future__ import annotations
 
@@ -37,12 +37,11 @@ INF = jnp.inf
 
 
 def _dot3(obj_vec: Array, rays_T: Array) -> Array:
-    """(O, 3) x (3, R) -> (O, R) contraction as explicit VPU broadcast-FMA.
+    """(O, 3) x (3, R) -> (O, R) contraction as explicit broadcast FMAs.
 
-    K=3 is far too small for the MXU: XLA would pad the contraction dim to
-    128 (and f32 matmul on v5e-class chips is multi-pass), making each of
-    these "matmuls" cost milliseconds. Three fused multiply-adds on the VPU
-    do the same work in microseconds."""
+    Elementwise, so it is exact float32 on every backend (a dot_general
+    may run in reduced precision, e.g. TF32 on a GPU) and fuses into the
+    consumer instead of becoming a K=3 matrix product."""
     return (obj_vec[:, 0:1] * rays_T[0][None, :]
             + obj_vec[:, 1:2] * rays_T[1][None, :]
             + obj_vec[:, 2:3] * rays_T[2][None, :])
@@ -56,10 +55,9 @@ def sphere_ts_matmul(o: Array, d: Array, mint: Array, maxt: Array,
                      center: Array, radius: Array, mask: Array) -> Array:
     """All-pairs nearest valid hit parameter t, **(S, R)**; INF where no hit.
 
-    Layout note (TPU-first): the pair matrix is (objects, rays) — rays ride
-    the 128-wide lane axis, objects the 8-deep sublane axis. Small scenes
-    (O ~ 10) would waste >90% of each vector register in the (R, O)
-    orientation; (O, R) keeps the VPU full at any object count.
+    Layout note: the pair matrix is (objects, rays), so the champion
+    reduction runs over the short leading axis and the ray axis stays
+    contiguous.
 
     Quadratic per pair (ref interSphere code.cl:199-242):
       a = |d|^2,  b = 2 (o·d − d·c),  c = |o|^2 − 2 o·c + |c|^2 − r^2.
@@ -69,8 +67,8 @@ def sphere_ts_matmul(o: Array, d: Array, mint: Array, maxt: Array,
     oo = jnp.sum(o * o, -1)                      # (R,)
     a = jnp.sum(d * d, -1)                       # (R,)
     dT, oT = d.T, o.T                            # (3,R)
-    dc = _dot3(center, dT)                       # (S,R)  VPU
-    oc = _dot3(center, oT)                       # (S,R)  VPU
+    dc = _dot3(center, dT)                       # (S,R)
+    oc = _dot3(center, oT)                       # (S,R)
     cc = jnp.sum(center * center, -1) - radius * radius   # (S,)
     b = 2.0 * (od[None, :] - dc)
     c = oo[None, :] - 2.0 * oc + cc[:, None]
@@ -150,8 +148,8 @@ def triangle_ts_matmul(o: Array, d: Array, mint: Array, maxt: Array,
     """
     oxd = jnp.cross(o, d)                        # (R,3)
     dT, oT, oxdT = d.T, o.T, oxd.T               # (3,R)
-    div = _dot3(tc.n_geo, dT)                    # (T,R)  VPU
-    o_ng = _dot3(tc.n_geo, oT)                   # (T,R)  VPU
+    div = _dot3(tc.n_geo, dT)                    # (T,R)
+    o_ng = _dot3(tc.n_geo, oT)                   # (T,R)
     beta_num = _dot3(tc.e2, oxdT) - _dot3(tc.c2, dT)     # (T,R)
     gamma_num = _dot3(tc.c1, dT) - _dot3(tc.e1, oxdT)    # (T,R)
 

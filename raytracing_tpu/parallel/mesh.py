@@ -2,21 +2,24 @@
 "tensor parallelism" over a jax.sharding.Mesh.
 
 The reference's only parallel axis is the NDRange over rays on one OpenCL
-device (SURVEY §2.4). The TPU-native scaling design (new, per BASELINE.json):
+device (SURVEY §2.4). The scaling design (new, per BASELINE.json):
 
-  * 'rays' axis  — shard the wavefront ray/accumulator buffers across chips
-                   (the NDRange analog). Scene read-only state is replicated,
-                   so the forward pass needs NO communication at all.
-  * 'obj' axis   — optionally shard the *object* axis: each chip intersects
-                   its object shard and champions are combined with an
-                   all-gather + min-reduce (the ray-tracing analog of TP).
+  * 'rays' axis  — shard the wavefront ray/accumulator buffers across
+                   devices (the NDRange analog). Scene read-only state is
+                   replicated, so the forward pass needs NO communication.
+                   The mesh is 1-D: every device reaches every other at the
+                   same rate, so it follows the algorithm alone.
+  * 'obj' axis   — optionally shard the *object* axis: each device
+                   intersects its object shard and champions are combined
+                   with an all-gather + min-reduce (the ray-tracing analog
+                   of TP).
   * gradients    — parameters (geometry/materials/camera) are replicated;
                    jit-with-shardings inserts the psum over 'rays' in the
                    backward pass automatically, overlapped by XLA's
                    latency-hiding scheduler.
 
 Multi-host: call init_distributed() (jax.distributed.initialize) first; the
-same code then spans hosts with DCN between slices.
+same code then spans hosts.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.config import RenderConfig
 from ..core.types import Scene
-from ..render import pathtracer
+from ..ops.pallas import fused_pass
+from ..render import pathtracer, route
 
 Array = jax.Array
 
@@ -73,9 +77,8 @@ def shard_state(state: dict, mesh: Mesh) -> dict:
             out[k] = jax.device_put(v, sh[k])
         except ValueError:
             # ray count not divisible by the shard count: device_put
-            # refuses uneven shardings — leave the entry unplaced; the
-            # render fns shard it on entry (megakernel path pads the ray
-            # axis per-shard, GSPMD path partitions unevenly itself)
+            # refuses uneven shardings — leave the entry unplaced; GSPMD
+            # partitions it unevenly on entry to the render fns
             out[k] = v
     return out
 
@@ -89,61 +92,31 @@ def sharded_render_passes(mesh: Mesh, cfg: RenderConfig, n_passes: int):
     """Compile a render-passes fn whose ray-indexed state is sharded over the
     'rays' mesh axis. Scene is replicated; forward needs no collectives.
 
-    cfg.use_megakernel routes through shard_map (GSPMD cannot partition a
-    pallas_call): each shard runs the fused kernel on its local ray slice
-    with the global ray offset for pixel decode + PRNG decorrelation."""
+    On the fused-kernel route each device runs the kernel on its own ray
+    slice under shard_map (GSPMD cannot partition a pallas_call), with its
+    global ray offset for pixel decode and draws; the XLA route is
+    partitioned by GSPMD."""
     sh = _state_sharding(mesh)
-    from ..render import mega
-
-    fn_gspmd = jax.jit(
-        lambda scene, state: pathtracer.render_passes(scene, state, cfg,
-                                                      n_passes),
-        in_shardings=(None, sh),   # scene keeps its (replicated) placement
-        out_shardings=sh,
-    )
-    if not (cfg.use_megakernel and mega.supported(None, cfg)):
-        return fn_gspmd
-
-    from jax import shard_map
-
     n_shards = mesh.shape["rays"]
-    R = cfg.total_rays
-    local_r = -(-R // n_shards)          # ceil: pad, don't assert
-    r_pad = local_r * n_shards
+    local = cfg.total_rays // n_shards
+    spec = {"acc": P("rays", None), "key": P(), "passes": P()}
 
     def local_passes(scene, state):
-        off = jax.lax.axis_index("rays") * local_r
-        for _ in range(n_passes):
-            state = mega.render_pass_mega(scene, state, cfg, ray_offset=off)
-        return state
+        off = jax.lax.axis_index("rays") * local
+        return fused_pass.render_passes(scene, state, cfg, n_passes,
+                                        ray_offset=off)
 
-    spec_state = {"acc": P("rays", None), "key": P(), "passes": P()}
-    fn_mega = jax.jit(shard_map(
-        local_passes, mesh=mesh,
-        in_specs=(P(), spec_state), out_specs=spec_state,
-        check_vma=False))
+    def render(scene, state):
+        on = mesh.devices.flat[0].platform      # the devices that run it
+        if (route.forward(scene, cfg, on=on) == route.TRITON
+                and cfg.total_rays % n_shards == 0):
+            return jax.shard_map(local_passes, mesh=mesh,
+                                 in_specs=(P(), spec), out_specs=spec,
+                                 check_vma=False)(scene, state)
+        return pathtracer.render_passes_xla(scene, state, cfg, n_passes)
 
-    def fn_mega_padded(scene, state):
-        # non-divisible resolutions: pad the ray axis so every shard gets
-        # an equal slice; the kernel's in-range mask keeps padding lanes
-        # dead (global ids beyond the real ray count land in discarded
-        # accumulator slots)
-        if r_pad != R:
-            acc = state["acc"]
-            pad = jnp.zeros((r_pad - R,) + acc.shape[1:], acc.dtype)
-            state = {**state, "acc": jnp.concatenate([acc, pad])}
-        out = fn_mega(scene, state)
-        if r_pad != R:
-            out = {**out, "acc": out["acc"][:R]}
-        return out
-
-    def fn(scene, state):
-        # scene-size check happens at call time: big scenes (beyond the
-        # kernel's unroll budget) take the GSPMD stage-pipeline path
-        if mega.supported(scene, cfg):
-            return fn_mega_padded(scene, state)
-        return fn_gspmd(scene, state)
-    return fn
+    # scene keeps its (replicated) placement
+    return jax.jit(render, in_shardings=(None, sh), out_shardings=sh)
 
 
 # ---------------------------------------------------------------------------
@@ -176,16 +149,9 @@ def make_train_step(mesh: Mesh, cfg: RenderConfig, *,
     ``apply_params(scene, params) -> Scene`` maps an arbitrary parameter
     pytree onto the scene (default: {center, radius, materials});
     ``loss_fn(img, target) -> scalar`` is the image loss (default: L2).
-    Rays are sharded over the mesh, params replicated.
-
-    Two execution paths:
-      * ``cfg.use_megakernel`` + scene within the diff-megakernel budget:
-        the progressive pass runs as a shard_map whose local body invokes
-        the fused custom-VJP megakernel (ops/pallas/megakernel_grad.py) on
-        this shard's ray slice; shard_map's transpose psums the parameter
-        cotangents over 'rays' automatically (replicated in_spec).
-      * otherwise the XLA stage pipeline under GSPMD (psum inserted by
-        jit-with-shardings).
+    Rays are sharded over the mesh, params replicated. The pass is the
+    XLA stage pipeline under GSPMD; jit-with-shardings inserts the psum of
+    the parameter gradients over 'rays'.
     """
     sh = _state_sharding(mesh)
     rep = NamedSharding(mesh, P())
@@ -194,64 +160,18 @@ def make_train_step(mesh: Mesh, cfg: RenderConfig, *,
     if apply_params is None:
         apply_params = apply_default_params
 
-    from ..render import mega
+    def loss(params, scene: Scene, state: dict, target: Array):
+        sc = apply_params(scene, params)
+        new_state = pathtracer._render_pass(sc, state, cfg)
+        img = pathtracer.image(new_state, cfg)
+        return loss_fn(img, target), new_state
 
-    def make_step(render_pass):
-        def loss(params, scene: Scene, state: dict, target: Array):
-            sc = apply_params(scene, params)
-            new_state = render_pass(sc, state)
-            img = pathtracer.image(new_state, cfg)
-            return loss_fn(img, target), new_state
+    grad_fn = jax.value_and_grad(loss, has_aux=True)
 
-        grad_fn = jax.value_and_grad(loss, has_aux=True)
-
-        @partial(jax.jit,
-                 in_shardings=(rep, None, sh, rep),
-                 out_shardings=((rep, sh), rep))
-        def step(params, scene, state, target):
-            (l, new_state), grads = grad_fn(params, scene, state, target)
-            return (l, new_state), grads
-
-        return step
-
-    step_gspmd = make_step(
-        lambda scene, state: pathtracer._render_pass(scene, state, cfg))
-    if not (cfg.use_megakernel and mega.supported_diff(None, cfg)):
-        return step_gspmd
-
-    from jax import shard_map
-
-    n_shards = mesh.shape["rays"]
-    R = cfg.total_rays
-    local_r = -(-R // n_shards)
-    r_pad = local_r * n_shards
-
-    def local_pass(scene, state):
-        off = jax.lax.axis_index("rays") * local_r
-        return mega.render_pass_mega(scene, state, cfg, ray_offset=off)
-
-    spec_state = {"acc": P("rays", None), "key": P(), "passes": P()}
-    mega_pass = shard_map(local_pass, mesh=mesh,
-                          in_specs=(P(), spec_state),
-                          out_specs=spec_state, check_vma=False)
-
-    def mega_pass_padded(scene, state):
-        if r_pad != R:
-            acc = state["acc"]
-            pad = jnp.zeros((r_pad - R,) + acc.shape[1:], acc.dtype)
-            state = {**state, "acc": jnp.concatenate([acc, pad])}
-        out = mega_pass(scene, state)
-        if r_pad != R:
-            out = {**out, "acc": out["acc"][:R]}
-        return out
-
-    step_mega = make_step(mega_pass_padded)
-
+    @partial(jax.jit,
+             in_shardings=(rep, None, sh, rep),
+             out_shardings=((rep, sh), rep))
     def step(params, scene, state, target):
-        # scene-size check at call time: scenes beyond the diff-megakernel
-        # budget train through the GSPMD stage pipeline
-        if mega.supported_diff(scene, cfg):
-            return step_mega(params, scene, state, target)
-        return step_gspmd(params, scene, state, target)
+        return grad_fn(params, scene, state, target)
 
     return step

@@ -1,7 +1,7 @@
 """Scaling-efficiency harness (BASELINE.json: rays/s at 1 chip / 1 host /
 N hosts, target >=90% to 2 hosts).
 
-On real multi-chip hardware this measures true ICI scaling; on the virtual
+On real multi-device hardware this measures true scaling; on the virtual
 CPU mesh it validates the *methodology* (weak/strong scaling bookkeeping,
 sharding correctness) — virtual-device timings share one physical CPU so
 the efficiency numbers are not meaningful there.
@@ -11,16 +11,11 @@ from __future__ import annotations
 import time
 
 import jax
-import numpy as np
 
 from ..core.config import RenderConfig
 from ..core.types import Scene
 from ..render import pathtracer
 from . import mesh as pm
-
-
-def _fence(state) -> None:
-    np.asarray(jax.device_get(state["acc"].ravel()[0]))
 
 
 def measure_rays_per_s(scene: Scene, cfg: RenderConfig, n_devices: int,
@@ -30,11 +25,11 @@ def measure_rays_per_s(scene: Scene, cfg: RenderConfig, n_devices: int,
     state = pm.shard_state(pathtracer.init_state(cfg), m)
     render = pm.sharded_render_passes(m, cfg, n_passes)
     state = render(sscene, state)
-    _fence(state)
+    jax.block_until_ready(state)
     t0 = time.perf_counter()
     for _ in range(reps):
         state = render(sscene, state)
-    _fence(state)
+    jax.block_until_ready(state)
     dt = time.perf_counter() - t0
     n_lights = scene.lights.count
     segs = cfg.total_rays * (1 + n_lights + cfg.bounces * (1 + n_lights))
@@ -43,18 +38,16 @@ def measure_rays_per_s(scene: Scene, cfg: RenderConfig, n_devices: int,
 
 def scaling_report(scene_fn, width: int, height: int,
                    device_counts=(1, 2, 4, 8), bounces: int = 3,
-                   weak: bool = True, megakernel: bool = False) -> list[dict]:
+                   weak: bool = True) -> list[dict]:
     """Weak scaling: rays per device held constant (width scales with N).
-    Strong scaling (weak=False): fixed total work. ``megakernel`` routes
-    each shard through the fused Pallas kernel (TPU meshes)."""
+    Strong scaling (weak=False): fixed total work."""
     rows = []
     base = None
     for n in device_counts:
         if n > len(jax.devices()):
             break
         w = width * n if weak else width
-        cfg = RenderConfig(width=w, height=height, spp=1, bounces=bounces,
-                           use_megakernel=megakernel)
+        cfg = RenderConfig(width=w, height=height, spp=1, bounces=bounces)
         scene = scene_fn(w, height)
         rps = measure_rays_per_s(scene, cfg, n)
         per_dev = rps / n

@@ -20,8 +20,9 @@ from ..core import rng
 from ..core.config import RenderConfig
 from ..core.sampling import sample_disk_point
 from ..core.types import Hits, Rays, Scene, replace, safe_normalize
-from ..ops import intersect as I
-from . import stages
+from ..ops.closest_hit import fetch_rows
+from ..ops.pallas import fused_pass
+from . import route, stages
 from .camera import generate_primary_rays
 
 Array = jax.Array
@@ -38,11 +39,30 @@ def render_direct(scene: Scene, cfg: RenderConfig, key=None,
     program — the progressive-accumulation idea of the reference's
     continuosRender (Assign09/10 code.js) applied to the Assign08/09
     single-bounce pipelines: soft shadows and depth of field converge with
-    passes, and there is no host dispatch between passes."""
-    if cfg.use_megakernel:
-        from .mega import render_direct_mega, supported
-        if supported(scene, cfg):
-            return render_direct_mega(scene, cfg, key=key, n_passes=n_passes)
+    passes, and there is no host dispatch between passes. The
+    implementation is the one ``route.forward`` names; derivatives of
+    every route are those of the XLA pipeline."""
+    if key is None:
+        key = rng.base_key(cfg.seed)
+    if route.forward(scene, cfg) == route.TRITON:
+        return _fused_direct(scene, key, cfg, n_passes)
+    return _direct_xla(scene, cfg, key, n_passes)
+
+
+@partial(jax.custom_jvp, nondiff_argnums=(2, 3))
+def _fused_direct(scene: Scene, key, cfg: RenderConfig,
+                  n_passes: int) -> Array:
+    return fused_pass.render_direct(scene, cfg, key, n_passes)
+
+
+@_fused_direct.defjvp
+def _fused_direct_jvp(cfg, n_passes, primals, tangents):
+    # forward-only kernel: differentiated, the call is the XLA pipeline
+    return jax.jvp(lambda sc, k: _direct_xla(sc, cfg, k, n_passes),
+                   primals, tangents)
+
+
+def _direct_xla(scene: Scene, cfg: RenderConfig, key, n_passes: int) -> Array:
     if key is None:
         key = rng.base_key(cfg.seed)
 
@@ -94,9 +114,11 @@ def _direct_pass_acc(scene: Scene, cfg: RenderConfig, key) -> Array:
         shade = jnp.full((rays.n,), cfg.ambient)
         cosx = jnp.clip(jnp.sum(sdir * hits.n, -1), 0.0, 1.0)
         shade = shade + jnp.where(~occ, cosx, 0.0)
-        from ..ops.closest_hit import palette_lookup
-        albedo = palette_lookup(scene.materials[:, :3], hits.mat_id)
+        albedo = fetch_rows(scene.materials[:, :3], hits.mat_id)
         contrib = albedo * jnp.clip(shade, 0.0, 1.0)[:, None]
         acc = acc + jnp.where(hits.valid[:, None], contrib, 0.0)
 
     return acc
+
+
+render_direct_xla = jax.jit(_direct_xla, static_argnames=("cfg", "n_passes"))

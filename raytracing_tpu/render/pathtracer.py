@@ -24,7 +24,8 @@ import jax.numpy as jnp
 from ..core import rng
 from ..core.config import RenderConfig
 from ..core.types import Hits, Scene, replace
-from . import stages
+from ..ops.pallas import fused_pass
+from . import route, stages
 from .camera import generate_primary_rays
 
 Array = jax.Array
@@ -32,8 +33,7 @@ Array = jax.Array
 
 def pass_draw_count(cfg: RenderConfig, n_lights: int) -> int:
     """Slots in the pass-wide (R, n_draws, 2) uniform tensor: lens, NEE per
-    light, then per depth: [rr when enabled], bounce, NEE per light. The
-    megakernel's plane layout mirrors this exactly."""
+    light, then per depth: [rr when enabled], bounce, NEE per light."""
     per_depth = (1 if cfg.russian_roulette else 0) + 1 + n_lights
     return 1 + n_lights + cfg.bounces * per_depth
 
@@ -49,16 +49,8 @@ def init_state(cfg: RenderConfig) -> dict:
 
 
 def _render_pass(scene: Scene, state: dict, cfg: RenderConfig) -> dict:
-    """One progressive pass (= spp samples/pixel). Pure function of
-    (scene, state)."""
-    if cfg.use_megakernel:
-        # whole-pass fused Pallas kernel (production path, differentiable
-        # within the supported_diff budgets; this XLA pipeline remains the
-        # oracle). Configs the kernel doesn't cover (stale-POI, >2^24
-        # rays) fall through to the stage pipeline.
-        from .mega import render_pass_mega, supported
-        if supported(scene, cfg):
-            return render_pass_mega(scene, state, cfg)
+    """One progressive pass (= spp samples/pixel) through the XLA stage
+    pipeline. Pure function of (scene, state); differentiable."""
     acc, passes = state["acc"], state["passes"]
     kp = rng.pass_key(state["key"], passes)
     cam = replace(scene.camera, cols=cfg.width, rows=cfg.height)
@@ -66,11 +58,8 @@ def _render_pass(scene: Scene, state: dict, cfg: RenderConfig) -> dict:
     R = cfg.total_rays
 
     # ONE batched threefry draw for the whole pass (lens + per-depth light
-    # sampling + bounces + optional RR): many small uniform() calls are
-    # dominated by fixed per-call cost on TPU; a single (R, n_draws, 2)
-    # tensor is ~10x cheaper. Slot order per depth: [rr?], bounce, nee*L —
-    # the megakernel consumes the identical layout (render/mega.py
-    # u_planes_for_pass).
+    # sampling + bounces + optional RR) instead of many small uniform()
+    # calls. Slot order per depth: [rr?], bounce, nee*L.
     n_draws = pass_draw_count(cfg, n_lights)
     u_all = jax.random.uniform(kp, (R, n_draws, 2))
     draw = iter(range(n_draws))
@@ -105,29 +94,41 @@ def _render_pass(scene: Scene, state: dict, cfg: RenderConfig) -> dict:
     return {"acc": acc, "key": state["key"], "passes": passes + 1}
 
 
-render_pass = jax.jit(_render_pass, static_argnames=("cfg",))
+def _xla_passes(scene: Scene, state: dict, cfg: RenderConfig,
+                n_passes: int) -> dict:
+    def body(_, st):
+        return _render_pass(scene, st, cfg)
+    return jax.lax.fori_loop(0, n_passes, body, state)
+
+
+render_passes_xla = jax.jit(_xla_passes, static_argnames=("cfg", "n_passes"))
+
+
+@partial(jax.custom_jvp, nondiff_argnums=(2, 3))
+def _fused_passes(scene: Scene, state: dict, cfg: RenderConfig,
+                  n_passes: int) -> dict:
+    return fused_pass.render_passes(scene, state, cfg, n_passes)
+
+
+@_fused_passes.defjvp
+def _fused_passes_jvp(cfg, n_passes, primals, tangents):
+    # The kernel is forward only. Differentiated, the whole call is the XLA
+    # pipeline, value included, so value and gradient are one estimator.
+    return jax.jvp(lambda sc, st: _xla_passes(sc, st, cfg, n_passes),
+                   primals, tangents)
 
 
 @partial(jax.jit, static_argnames=("cfg", "n_passes"))
 def render_passes(scene: Scene, state: dict, cfg: RenderConfig,
                   n_passes: int) -> dict:
-    """Run several progressive passes inside one jit via lax.fori_loop —
-    no host round-trip between passes (the reference pays ~15-40 kernel
-    dispatches + a pixel readback per pass; we pay zero).
-
-    Megakernel renders on a real accelerator take the IN-KERNEL multi-pass
-    path: the whole K-pass schedule is one kernel launch with the
-    accumulator resident in VMEM across passes (per-pass PRNG reseed; bit-
-    identical to K separate launches) — removes the per-pass accumulator
-    HBM round-trip and dispatch fixed costs."""
-    if cfg.use_megakernel and jax.default_backend() != "cpu":
-        from .mega import render_pass_mega, supported
-        if supported(scene, cfg):
-            return render_pass_mega(scene, state, cfg, n_passes=n_passes)
-
-    def body(_, st):
-        return _render_pass(scene, st, cfg)
-    return jax.lax.fori_loop(0, n_passes, body, state)
+    """Run several progressive passes inside one jit — no host round-trip
+    between passes (the reference pays ~15-40 kernel dispatches + a pixel
+    readback per pass; we pay zero). The implementation is the one
+    ``route.forward`` names for this platform and scene; derivatives of
+    every route are those of the XLA pipeline."""
+    if route.forward(scene, cfg) == route.TRITON:
+        return _fused_passes(scene, state, cfg, n_passes)
+    return _xla_passes(scene, state, cfg, n_passes)
 
 
 def image(state: dict, cfg: RenderConfig) -> Array:
@@ -164,14 +165,21 @@ def load_checkpoint(path: str) -> dict:
             "passes": jnp.int32(z["passes"])}
 
 
-def save_checkpoint_sharded(path: str, state: dict) -> None:
-    """Orbax checkpoint that preserves shardings (multi-host/multi-chip:
-    each host writes its shards — no gather). Falls back to npz."""
+def _orbax():
     try:
         import orbax.checkpoint as ocp
-    except ImportError:
-        save_checkpoint(path + ".npz", state)
-        return
+    except ImportError as e:
+        raise ImportError(
+            "sharded checkpoints need the orbax-checkpoint package; "
+            "save_checkpoint/load_checkpoint need nothing beyond numpy"
+        ) from e
+    return ocp
+
+
+def save_checkpoint_sharded(path: str, state: dict) -> None:
+    """Orbax checkpoint that preserves shardings (multi-host/multi-chip:
+    each host writes its shards — no gather)."""
+    ocp = _orbax()
     flat = dict(state)
     flat["key"] = jax.random.key_data(flat["key"])
     ckptr = ocp.StandardCheckpointer()
@@ -180,7 +188,7 @@ def save_checkpoint_sharded(path: str, state: dict) -> None:
 
 
 def load_checkpoint_sharded(path: str, template: dict | None = None) -> dict:
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
     ckptr = ocp.StandardCheckpointer()
     if template is not None:
         flat = dict(template)

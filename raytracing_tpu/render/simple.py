@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 
 from ..core.types import Camera, Spheres
-from ..ops.closest_hit import closest_hit_spheres, onehot_fetch, \
+from ..ops.closest_hit import closest_hit_spheres, fetch_rows, \
     sphere_hit_attrs
 from .camera import pinhole_rays, pixel_grid
 
@@ -32,8 +32,8 @@ def render_fake_shade(cam: Camera, spheres: Spheres, colors: Array,
     rays = pinhole_rays(cam, col, row)
     ch = closest_hit_spheres(rays, spheres, obj_chunk=obj_chunk)
     _, n, _ = sphere_hit_attrs(rays, spheres, ch)
-    shade = jnp.einsum("j,ij->i", cam.w, n)
-    rgb = onehot_fetch(colors[:, :3], ch.idx) * shade[:, None]
+    shade = jnp.sum(cam.w[None, :] * n, -1)
+    rgb = fetch_rows(colors[:, :3], ch.idx) * shade[:, None]
     img = jnp.where(ch.valid[:, None], rgb, 0.0)
     return img.reshape(cam.rows, cam.cols, 3)
 
@@ -46,8 +46,8 @@ def render_fake_shade_orbit(cam: Camera, spheres: Spheres, colors: Array,
     the reference's rotate animation (Assign02 code.js:55-98 ``rotate``
     driven per frame) as ONE jitted lax.scan, zero host dispatches
     between frames. This is the steady-state form of the Assign01/02
-    pipeline (the single-frame render is one small dispatch and purely
-    launch-overhead-bound on a TPU)."""
+    pipeline (the single-frame render is one small dispatch and bound by
+    launch overhead)."""
     def frame(_, angle):
         c = cam.orbit(bounds, angle)
         return None, render_fake_shade(c, spheres, colors, obj_chunk)

@@ -33,7 +33,7 @@ from ..ops import intersect as I
 from ..ops.closest_hit import (
     anyhit_spheres, anyhit_triangles,
     closest_hit_spheres, closest_hit_triangles,
-    palette_lookup, sphere_hit_attrs, triangle_hit_attrs,
+    fetch_rows, sphere_hit_attrs, triangle_hit_attrs,
 )
 
 Array = jax.Array
@@ -48,18 +48,11 @@ def _all_triangles(scene: Scene):
     """Scene triangles + every mesh instance folded into ONE batch for the
     brute-force path. The reference traces meshes separately only because
     each carries its own grid (meshTrace per mesh, code.js:1293-1303); with
-    no grid the split just multiplies program size — compile time for the
-    cornell_teapot scene dropped ~8x after folding. Mesh mat_ids are
+    no grid the split just multiplies program size. Mesh mat_ids are
     already baked per-triangle at load. XLA CSEs the concat across the
-    pass's 12 trace/occlusion sites."""
+    pass's trace/occlusion sites."""
     from ..core.types import Triangles
-    # order: scene tris, small meshes, then LARGE meshes — so the
-    # megakernel's grid mode can cover the large-mesh suffix while
-    # everything before ``start`` runs its brute loop (the reference's
-    # per-mesh dispatch split; 64 = megakernel UNROLL_OBJECTS)
-    small = [m.tris for m in scene.meshes if m.tris.count <= 64]
-    large = [m.tris for m in scene.meshes if m.tris.count > 64]
-    parts = [scene.triangles] + small + large
+    parts = [scene.triangles] + [m.tris for m in scene.meshes]
     parts = [p for p in parts if p.count]
     if not parts:
         return scene.triangles
@@ -102,8 +95,7 @@ def trace_all(rays: Rays, hits: Hits, scene: Scene, cfg: RenderConfig
             ch = grid_closest_spheres(rays, scene.spheres, scene.sphere_grid)
         else:
             ch = closest_hit_spheres(rays, scene.spheres,
-                                     obj_chunk=cfg.obj_chunk,
-                                     use_pallas=cfg.use_pallas)
+                                     obj_chunk=cfg.obj_chunk)
         p, n, mat = sphere_hit_attrs(rays, scene.spheres, ch)
         best = merge(ch, p, n, mat, best)
 
@@ -135,8 +127,7 @@ def trace_all(rays: Rays, hits: Hits, scene: Scene, cfg: RenderConfig
         if tris.count:
             ch = closest_hit_triangles(rays, tris,
                                        obj_chunk=cfg.obj_chunk,
-                                       two_sided=cfg.two_sided_triangles,
-                                       use_pallas=cfg.use_pallas)
+                                       two_sided=cfg.two_sided_triangles)
             p, n, mat = triangle_hit_attrs(rays, tris, ch)
             best = merge(ch, p, n, mat, best)
 
@@ -168,8 +159,7 @@ def occluded_any(rays: Rays, scene: Scene, cfg: RenderConfig) -> Array:
                                         scene.sphere_grid).valid
         else:
             occ |= anyhit_spheres(rays, scene.spheres,
-                                  obj_chunk=cfg.obj_chunk,
-                                  use_pallas=cfg.use_pallas)
+                                  obj_chunk=cfg.obj_chunk)
     if cfg.use_grid:
         if scene.triangles.count:
             if scene.triangle_grid is not None:
@@ -194,8 +184,7 @@ def occluded_any(rays: Rays, scene: Scene, cfg: RenderConfig) -> Array:
         if tris.count:
             occ |= anyhit_triangles(rays, tris,
                                     obj_chunk=cfg.obj_chunk,
-                                    two_sided=cfg.two_sided_triangles,
-                                    use_pallas=cfg.use_pallas)
+                                    two_sided=cfg.two_sided_triangles)
     return occ
 
 
@@ -261,9 +250,8 @@ def nee_shade(acc: Array, hits: Hits, scene: Scene, light_idx: int,
     n_rays = hits.p.shape[0]
 
     # sample a point on the light disk (concentric map in the light frame).
-    # ``u`` (R, 2) is normally sliced from the pass-wide random tensor (one
-    # batched threefry call per pass — 12 small draws cost ~12x more in
-    # fixed overhead than one big one); key is the fallback.
+    # ``u`` (R, 2) is normally sliced from the pass-wide random tensor
+    # (pathtracer.pass_draw_count); key is the fallback.
     if u is None:
         u = rng.uniform2(key, n_rays)
     target = sample_disk_point(pos[None, :], t_ax[None, :], b_ax[None, :],
@@ -289,7 +277,7 @@ def nee_shade(acc: Array, hits: Hits, scene: Scene, light_idx: int,
     free = valid & ~occ
     shade = jnp.where(free[:, None], geom[:, None] * irr[None, :], 0.0)
 
-    albedo = palette_lookup(scene.materials[:, :3], hits.mat_id)
+    albedo = fetch_rows(scene.materials[:, :3], hits.mat_id)
     contrib = jnp.where(valid[:, None],
                         hits.throughput * albedo * shade, 0.0)
     acc = acc + contrib
@@ -328,10 +316,6 @@ def apply_russian_roulette(hits: Hits, key: Array, depth: int,
     pathtracer.pass_draw_count); key is the fallback."""
     if not cfg.russian_roulette or depth < cfg.rr_start_depth:
         return hits
-    # maximum-chain (not reduce_max): identical primal, but on exactly-tied
-    # channels (gray albedo) the VJP tie split matches the megakernel's
-    # 2D-vector-register formulation, keeping mega-vs-XLA grads bitwise
-    # comparable
     tp = hits.throughput
     p_survive = jnp.clip(jnp.maximum(tp[..., 0],
                                      jnp.maximum(tp[..., 1], tp[..., 2])),

@@ -5,8 +5,8 @@ an ABI struct-size negotiation (SURVEY §2.2: findWebCLDevices
 code.js:466-505, cl_resources code.js:1539-1552, getStructSize
 code.js:1064-1076). The JAX runtime replaces all of that; what remains
 useful is surfaced here: device info, scene statistics/validation (the ABI
-check analog — shape/dtype invariants), and a timing harness that works on
-backends where block_until_ready is a no-op.
+check analog — shape/dtype invariants), a timing harness and a profiler
+trace context.
 """
 from __future__ import annotations
 
@@ -71,47 +71,25 @@ def validate_scene(scene: Scene) -> list[str]:
     return issues
 
 
-def fence(x) -> None:
-    """Reliable completion barrier: fetch one element of every leaf.
-    jax.block_until_ready is a no-op on some plugin backends."""
-    for leaf in jax.tree.leaves(x):
-        if hasattr(leaf, "ravel") and getattr(leaf, "size", 0):
-            np.asarray(jax.device_get(leaf.ravel()[0]))
-
-
 def timeit(fn: Callable, *args, iters: int = 5, warmup: int = 1) -> float:
-    """Median-of-iters wall time in seconds, fence-synchronized."""
+    """Median-of-iters wall time in seconds; each call ends in
+    ``jax.block_until_ready``."""
     for _ in range(warmup):
-        fence(fn(*args))
+        jax.block_until_ready(fn(*args))
     times = []
     for _ in range(iters):
         t0 = time.perf_counter()
-        fence(fn(*args))
+        jax.block_until_ready(fn(*args))
         times.append(time.perf_counter() - t0)
     times.sort()
     return times[len(times) // 2]
 
 
-import contextlib
-
-
-@contextlib.contextmanager
 def profile_trace(log_dir: str):
-    """XLA profiler trace (view with TensorBoard / xprof). Wraps
-    jax.profiler.trace; safe no-op if the profiler is unavailable."""
-    try:
-        jax.profiler.start_trace(log_dir)
-        started = True
-    except Exception:
-        started = False
-    try:
-        yield
-    finally:
-        if started:
-            try:
-                jax.profiler.stop_trace()
-            except Exception:
-                pass
+    """XLA profiler trace of the enclosed work (view with TensorBoard /
+    xprof, or read with ``jax.profiler.ProfileData``). A profiler that
+    cannot start or stop raises."""
+    return jax.profiler.trace(log_dir)
 
 
 class StageTimer:
@@ -123,8 +101,7 @@ class StageTimer:
 
     def run(self, name: str, fn: Callable, *args):
         t0 = time.perf_counter()
-        out = fn(*args)
-        fence(out)
+        out = jax.block_until_ready(fn(*args))
         self.records.setdefault(name, []).append(time.perf_counter() - t0)
         return out
 

@@ -11,11 +11,11 @@ background thread and streams each pass to a canvas.
 
     python -m raytracing_tpu.viewer --port 8000 --width 320 --height 240
     # open http://localhost:8000  ->  scene/spp/focal/lens controls,
-    # Start/Stop, live pass counter and segs/s — the Assign10 UI, TPU-backed.
+    # Start/Stop, live pass counter and segs/s — the Assign10 UI.
 
-Rendering goes through the same engine as the CLI (render.pathtracer /
-render.direct with the megakernel routing), so the viewer is presentation
-only — no second render path to keep correct.
+Rendering goes through the same entry points as the CLI (render.pathtracer
+/ render.direct, which ask render.route for the implementation), so the
+viewer is presentation only — no second render path to keep correct.
 """
 from __future__ import annotations
 
@@ -147,43 +147,24 @@ class RenderSession:
     def _scene_for(self, name: str):
         """Load + accel-prepare a scene ONCE per session (the reference
         loads the scene and bins its grids in preRender, not per frame —
-        code.js:1784-1804). Grids make the megakernel's in-kernel grid /
-        sphere-grid modes available to the live view."""
+        code.js:1784-1804)."""
         sc = self._scene_cache.get(name)
         if sc is None:
-            sc = self._load(name)
-            try:
-                from .accel import prepare_grids
-                sc = prepare_grids(sc, "auto", mesh_slabs="auto")
-            except Exception:
-                pass
+            from .accel import prepare_grids
+            sc = prepare_grids(self._load(name), "auto", mesh_slabs="auto")
             self._scene_cache[name] = sc
         return sc
 
-    def _block_for(self) -> int:
-        """Largest pixel-block side that tiles the film (<= 96): blocked
-        ray layout keeps tile-level culling frustums compact."""
-        import math
-        g = math.gcd(self.width, self.height)
-        for b in (96, 80, 64, 48, 32):
-            if g % b == 0:
-                return b
-        return 0
-
     def _cfg(self, scene, spp: int):
         from . import RenderConfig
-        from .render import mega
+        from .render import route
 
-        # grids pay past the unroll budget (in-kernel cell culling); tiny
-        # scenes (cornell) are fastest on the brute megakernel
-        gridded = sum(int(g.item_indices.shape[0])
-                      for g in (scene.folded_tri_grid or ()))
-        use_grid = gridded > 64 or scene.mega_sph_grid is not None
+        # grids pay once the tables outgrow brute force
+        n_objects = scene.spheres.count + scene.triangles.count \
+            + sum(m.tris.count for m in scene.meshes)
         cfg = RenderConfig(width=self.width, height=self.height, spp=spp,
-                           bounces=self.bounces, use_megakernel=True,
-                           mega_block=self._block_for(),
-                           use_grid=use_grid)
-        self._engine = "megakernel" if mega.supported(scene, cfg) else "xla"
+                           bounces=self.bounces, use_grid=n_objects > 64)
+        self._engine = route.forward(scene, cfg)
         return cfg
 
     def _publish(self, img) -> None:
@@ -200,10 +181,9 @@ class RenderSession:
     def step(self, scene="cornell", renderer="path", spp=1,
              focal=None, lens=None, n_passes=1, orbit=False) -> None:
         """One synchronous chunk (used by the loop and by tests). Renders
-        through the PRODUCTION engine: megakernel routing (grids prepared,
-        blocked layout) via the same render-pass entry points the bench
-        uses — the reference's L5 always drove its real kernels
-        progressively (code.js:1861-1870)."""
+        through the same entry points as the CLI and the bench, so the
+        route is the one render.route names — the reference's L5 always
+        drove its real kernels progressively (code.js:1861-1870)."""
         import jax.numpy as jnp
 
         from . import replace
@@ -400,6 +380,8 @@ def main(argv=None) -> int:
     if args.cpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
+    from .utils.cache import enable_compilation_cache
+    enable_compilation_cache()
 
     import os
     extra = {os.path.splitext(os.path.basename(p))[0]: p

@@ -106,3 +106,46 @@ def fake_shade_image(o_eye, cam_w, cam, cen, rad, colors, cols, rows):
                 shade = cam_w @ n
                 img[r, c] = colors[j][:3] * shade
     return img
+
+
+def sphere_ts_vec(o, d, mint, maxt, cen, rad):
+    """Vectorized float64 ``sphere_ts`` for large ray batches (same math,
+    NumPy broadcasting instead of loops)."""
+    o, d, cen = (np.asarray(x, np.float64) for x in (o, d, cen))
+    rad = np.asarray(rad, np.float64)
+    omc = o[:, None, :] - cen[None]
+    a = np.sum(d * d, -1)[:, None]
+    b = 2 * np.sum(omc * d[:, None, :], -1)
+    c = np.sum(omc * omc, -1) - rad[None] ** 2
+    dis = b * b - 4 * a * c
+    sq = np.sqrt(np.maximum(dis, 0))
+    t0, t1 = (-b - sq) / (2 * a), (-b + sq) / (2 * a)
+    tmn, tmx = np.minimum(t0, t1), np.maximum(t0, t1)
+    lo, hi = np.asarray(mint)[:, None], np.asarray(maxt)[:, None]
+    t = np.where((lo <= tmn) & (tmn <= hi), tmn,
+                 np.where((lo <= tmx) & (tmx <= hi), tmx, np.inf))
+    return np.where(dis >= 0, t, np.inf)
+
+
+def triangle_ts_vec(o, d, mint, maxt, v, two_sided=False):
+    """Vectorized float64 ``triangle_ts``."""
+    o, d, v = (np.asarray(x, np.float64) for x in (o, d, v))
+    out = np.full((o.shape[0], v.shape[0]), np.inf)
+    for flip in ([False, True] if two_sided else [False]):
+        p0, p1, p2 = v[:, 0], v[:, 1], v[:, 2]
+        if flip:
+            p0, p1 = p1, p0
+        e1, e2 = (p1 - p0)[None], (p2 - p0)[None]
+        dd = d[:, None, :]
+        div = np.sum(np.cross(e2, e1) * dd, -1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            idiv = 1 / div
+            s = o[:, None, :] - p0[None]
+            beta = np.sum(np.cross(s, dd) * e2, -1) * idiv
+            gamma = np.sum(np.cross(s, e1) * dd, -1) * idiv
+            t = np.sum(np.cross(s, e2) * e1, -1) * -idiv
+        ok = (div > 0) & (beta >= 0) & (beta <= 1) & (gamma >= 0) \
+            & (beta + gamma <= 1) & (np.asarray(mint)[:, None] <= t) \
+            & (t <= np.asarray(maxt)[:, None])
+        out = np.minimum(out, np.where(ok, t, np.inf))
+    return out

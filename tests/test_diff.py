@@ -358,4 +358,5 @@ def test_auto_slabs_resolution():
     assert auto_slabs(1012) == 3
     assert auto_slabs(5322) == 5
     scene = prepare_grids(cornell_box(cols=8, rows=8), "auto")
-    assert scene.folded_tri_grid is not None
+    assert scene.triangle_grid.n == (1, 1, 1)
+    assert scene.sphere_grid.n == (1, 1, 1)

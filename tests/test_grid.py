@@ -50,8 +50,7 @@ def test_csr_native_matches_python(rng):
 
 
 @pytest.mark.parametrize("method", ["march", "dense"])
-@pytest.mark.parametrize("n_slabs", [1, 2, 4, 5])  # 5^3 = 125 cells
-# exercises the march's row-GATHER cell fetch (> GATHER_MIN_CELLS)
+@pytest.mark.parametrize("n_slabs", [1, 2, 4, 5])  # up to 5^3 = 125 cells
 def test_grid_spheres_match_brute(rng, n_slabs, method):
     S, R = 30, 200
     cen = rng.uniform(-2, 2, (S, 3)).astype(np.float32)
@@ -182,3 +181,35 @@ def test_grid_respects_ray_window(rng):
     ch = grid_closest_spheres(rays, sp, grid)
     v = np.array(ch.valid)
     assert not v[0] and v[1]
+
+
+@pytest.mark.parametrize("method", ["march", "dense"])
+def test_grid_item_ids_above_2048(method):
+    """Item ids past 2048 (where a float cell table read back through a
+    reduced-precision matrix product would round them) come back exact:
+    ids travel as int32 through the grid's own items table."""
+    rng = np.random.default_rng(2048)
+    S, R = 2600, 256
+    cen = rng.uniform(-4, 4, (S, 3)).astype(np.float32)
+    rad = np.full(S, 0.12, np.float32)
+    sp = make_spheres(cen, rad, np.arange(S) % 7)
+    lo, hi = cen - rad[:, None], cen + rad[:, None]
+    g = build_sphere_grid(sp, lo.min(0), hi.max(0), 6)
+    # aim every ray at a sphere with a large id
+    tgt = rng.integers(2049, S, R)
+    o = rng.normal(size=(R, 3)).astype(np.float32) * 6
+    d = cen[tgt] - o
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    rays = Rays(o=jnp.array(o), d=jnp.array(d),
+                mint=jnp.zeros(R), maxt=jnp.full(R, jnp.inf))
+    ref = closest_hit_spheres(rays, sp)
+    got = grid_closest_spheres(rays, sp, g, method=method)
+    ok = np.array(ref.valid)
+    assert (np.array(got.valid) == ok).all()
+    assert (np.array(ref.idx)[ok] > 2048).mean() > 0.3
+    # the brute reference uses the expanded quadratic, the grid the omc
+    # form: a different champion is accepted only at a float tie in t
+    same = np.array(got.idx)[ok] == np.array(ref.idx)[ok]
+    assert same.mean() > 0.98
+    np.testing.assert_allclose(np.array(got.t)[ok], np.array(ref.t)[ok],
+                               rtol=1e-5)

@@ -32,7 +32,7 @@ def test_sphere_ts_vs_oracle(rng, formulation):
     ts = np.array(fn(jnp.array(o), jnp.array(d), jnp.array(mint),
                      jnp.array(maxt), jnp.array(cen), jnp.array(rad),
                      jnp.ones(S, bool)))
-    if formulation == "matmul":  # matmul form is (S, R) — objects on sublanes
+    if formulation == "matmul":  # matmul form is (S, R): objects first
         ts = ts.T
     ts_o = oracle.sphere_ts(o, d, mint, maxt, cen, rad)
     fin = np.isfinite(ts_o)

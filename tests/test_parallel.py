@@ -62,41 +62,6 @@ def test_train_step_grads_match_single_device():
     assert np.isfinite(np.array(grads8["center"])).all()
 
 
-def test_mega_train_step_grads_match_single_device():
-    """8-device grads THROUGH THE MEGAKERNEL VJP == single-device grads:
-    the shard_map train path whose local body invokes pathtrace_pass_diff
-    (shard_map transpose psums parameter cotangents over 'rays')."""
-    import dataclasses
-
-    cfg, scene = _setup()
-    cfg = dataclasses.replace(cfg, use_megakernel=True,
-                              mega_grad_wrt=("sph", "mat"))
-    params = {"center": scene.spheres.center,
-              "radius": scene.spheres.radius,
-              "materials": scene.materials}
-    target = jnp.zeros((cfg.height, cfg.width, 3))
-
-    m = pm.make_mesh(8)
-    sscene = pm.replicate_scene(scene, m)
-    step8 = pm.make_train_step(m, cfg)
-    state8 = pm.shard_state(pathtracer.init_state(cfg), m)
-    (loss8, st8), grads8 = step8(params, sscene, state8, target)
-
-    m1 = pm.make_mesh(1)
-    step1 = pm.make_train_step(m1, cfg)
-    state1 = pm.shard_state(pathtracer.init_state(cfg), m1)
-    (loss1, st1), grads1 = step1(params, scene, state1, target)
-
-    np.testing.assert_allclose(float(loss8), float(loss1), rtol=1e-5)
-    for k in grads8:
-        g8, g1 = np.array(grads8[k]), np.array(grads1[k])
-        np.testing.assert_allclose(g8, g1, atol=1e-5, err_msg=k)
-    assert np.isfinite(np.array(grads8["center"])).all()
-    assert np.abs(np.array(grads8["materials"])).sum() > 0
-    np.testing.assert_allclose(np.array(st8["acc"]), np.array(st1["acc"]),
-                               atol=1e-5)
-
-
 def test_train_step_custom_loss_and_params():
     """Generalized make_train_step API: user loss fn + arbitrary parameter
     pytree via apply_params (here: light irradiance + L1 loss)."""
@@ -120,30 +85,6 @@ def test_train_step_custom_loss_and_params():
     g = np.array(grads["irradiance"])
     assert np.isfinite(float(loss)) and np.isfinite(g).all()
     assert np.abs(g).sum() > 0
-
-
-def test_sharded_megakernel_nondivisible_rays():
-    """Resolutions that don't divide the shard count: the ray axis is
-    padded per-shard (no divisibility assert); megakernel render must still
-    equal the single-device render on the real rays."""
-    from raytracing_tpu.render.mega import render_pass_mega
-
-    cfg = RenderConfig(width=36, height=15, spp=1, bounces=1, seed=4,
-                       use_megakernel=True)      # 540 rays, 8 shards -> pad
-    scene = cornell_box(cols=cfg.width, rows=cfg.height)
-    single = pathtracer.init_state(cfg)
-    for _ in range(2):
-        single = render_pass_mega(scene, single, cfg, interpret=True)
-
-    m = pm.make_mesh(8)
-    sscene = pm.replicate_scene(scene, m)
-    sstate = pm.shard_state(pathtracer.init_state(cfg), m)
-    fn = pm.sharded_render_passes(m, cfg, n_passes=2)
-    out = fn(sscene, sstate)
-    got, ref = np.asarray(out["acc"]), np.asarray(single["acc"])
-    assert got.shape == ref.shape
-    assert ((got != 0) == (ref != 0)).all()
-    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=2e-5)
 
 
 def test_mesh_shapes():
@@ -177,41 +118,3 @@ def test_objsharded_closest_hit_matches():
     assert (np.array(got.idx)[ok] == np.array(ref.idx)[ok]).all()
     np.testing.assert_allclose(np.array(got.t)[ok], np.array(ref.t)[ok],
                                atol=1e-6)
-
-
-def test_mega_cell_train_sharded_matches_single_device():
-    """Round 5: the CHAMPION (cell) backward under shard_map — 8-device
-    grads through the recording forward + gather/shade-VJP/scatter must
-    equal single-device. Forced on cornell (the 100-sphere auto-route
-    variant compiles for >10 min on the 2-CPU test box)."""
-    import dataclasses
-
-    from raytracing_tpu.render.mega import bwd_impl_for
-
-    cfg = RenderConfig(width=16, height=8, spp=1, bounces=0, seed=4,
-                       use_megakernel=True, mega_grad_wrt=("sph", "mat"),
-                       mega_bwd_impl="cell")
-    scene = cornell_box(cols=cfg.width, rows=cfg.height)
-    assert bwd_impl_for(scene, cfg) == "cell"
-    params = {"center": scene.spheres.center,
-              "radius": scene.spheres.radius,
-              "materials": scene.materials}
-    target = jnp.zeros((cfg.height, cfg.width, 3))
-
-    m = pm.make_mesh(8)
-    sscene = pm.replicate_scene(scene, m)
-    step8 = pm.make_train_step(m, cfg)
-    state8 = pm.shard_state(pathtracer.init_state(cfg), m)
-    (loss8, _), grads8 = step8(params, sscene, state8, target)
-
-    m1 = pm.make_mesh(1)
-    step1 = pm.make_train_step(m1, cfg)
-    state1 = pm.shard_state(pathtracer.init_state(cfg), m1)
-    (loss1, _), grads1 = step1(params, scene, state1, target)
-
-    np.testing.assert_allclose(float(loss8), float(loss1), rtol=1e-5)
-    for k in grads8:
-        np.testing.assert_allclose(np.array(grads8[k]),
-                                   np.array(grads1[k]),
-                                   atol=1e-5, err_msg=k)
-    assert np.abs(np.array(grads8["center"])).max() > 0

@@ -41,8 +41,8 @@ def test_direct_renderer_shadows():
 
 
 def test_direct_progressive_passes():
-    """n_passes accumulation: same estimator (means agree within MC noise),
-    megakernel path identical to the XLA path with the same pass keys."""
+    """n_passes accumulation: same estimator (means agree within MC noise);
+    the routed entry point equals the XLA route with the same pass keys."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -54,15 +54,15 @@ def test_direct_progressive_passes():
     assert np.isfinite(i8).all()
     assert abs(i1.mean() - i8.mean()) < 0.05 * max(i1.mean(), 1e-6)
 
-    cfgm = RenderConfig(width=48, height=36, spp=1, bounces=0,
-                        use_megakernel=True)
-    m8 = np.array(render_direct(scene, cfgm, n_passes=8))
-    np.testing.assert_allclose(m8, i8, rtol=2e-4, atol=2e-4)
+    from raytracing_tpu.render import route
+    from raytracing_tpu.render.direct import render_direct_xla
+    assert route.forward(scene, cfg) == route.XLA
+    x8 = np.array(render_direct_xla(scene, cfg, None, 8))
+    np.testing.assert_allclose(x8, i8, rtol=2e-4, atol=2e-4)
 
     # thin-lens spp>1 (stratified lens + fresh light samples per pass)
     scene2 = dataclasses.replace(scene, lens_radius=jnp.float32(0.1))
-    cfg4 = RenderConfig(width=32, height=24, spp=4, bounces=0,
-                        use_megakernel=True)
+    cfg4 = RenderConfig(width=32, height=24, spp=4, bounces=0)
     t1 = np.array(render_direct(scene2, cfg4))
     t8 = np.array(render_direct(scene2, cfg4, n_passes=8))
     assert abs(t1.mean() - t8.mean()) < 0.05 * max(t1.mean(), 1e-6)

@@ -6,7 +6,7 @@ from raytracing_tpu import RenderConfig, replace
 from raytracing_tpu.models.scenes import cornell_box, sphere_field
 from raytracing_tpu.render import pathtracer
 from raytracing_tpu.utils.runtime import (
-    StageTimer, device_info, fence, scene_stats, timeit, validate_scene,
+    StageTimer, device_info, scene_stats, timeit, validate_scene,
 )
 
 
@@ -30,8 +30,11 @@ def test_validate_catches_bad_mat_id():
 
 def test_device_info_and_fence():
     info = device_info()
-    assert len(info) >= 1 and "platform" in info[0]
-    fence({"x": jnp.ones(4)})  # no-throw
+    assert len(info) >= 1
+    assert info[0]["platform"] == "cpu" and info[0]["kind"]
+    # timing fences with block_until_ready on every leaf of a pytree
+    assert timeit(lambda x: {"a": x + 1, "b": [x * 2]}, jnp.ones(4),
+                  iters=1) >= 0
 
 
 def test_timeit_and_stage_timer():

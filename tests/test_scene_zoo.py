@@ -45,33 +45,3 @@ def test_multi_light_accumulates_more():
     m1, n1 = mean_img(one[0])
     assert n3 > n1
     assert m3 > 0 and m1 > 0
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("path", SCENES, ids=[os.path.basename(p)
-                                              for p in SCENES])
-def test_scene_renders_through_megakernel(path):
-    """Every XML schema variant must exercise the PRODUCTION kernel
-    (render_pass_mega, interpret mode) and agree with the XLA pipeline
-    under identical draws — round-3 VERDICT item 9: the zoo previously
-    covered only the XLA pipeline."""
-    from raytracing_tpu.accel import prepare_grids
-    from raytracing_tpu.render.mega import (render_pass_mega, supported,
-                                            u_planes_for_pass)
-    scene = load_scene(path, 16, 12)
-    cfg = RenderConfig(width=16, height=12, spp=1, bounces=1, seed=1)
-    # grid-prepare when the scene carries meshes (per-mesh XML nslabs path)
-    if scene.meshes:
-        scene = prepare_grids(scene, 1, mesh_slabs="auto")
-        cfg = RenderConfig(width=16, height=12, spp=1, bounces=1, seed=1,
-                           use_grid=True)
-    assert supported(scene, cfg)
-    st = pathtracer.init_state(cfg)
-    u = u_planes_for_pass(st["key"], st["passes"], cfg, scene.lights.count)
-    got = render_pass_mega(scene, st, cfg, u_planes=u, interpret=True)
-    ref = pathtracer._render_pass(scene, st, cfg)
-    a, b = np.asarray(got["acc"]), np.asarray(ref["acc"])
-    assert np.isfinite(a).all()
-    # cross-path agreement at float tolerance outside champion-tie pixels
-    d = np.abs(a - b).max(-1)
-    assert (d < 1e-3).mean() > 0.98, float((d < 1e-3).mean())
